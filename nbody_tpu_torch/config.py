@@ -4,9 +4,15 @@ nbody_tpu/config.py).
 The constants and flag names are the JAX package's.  The dataclasses hold
 only what the port runs; every flag of a path the port does not run yet
 (sharding, ensembles, the scan and device-data loops, streaming, restore,
-tracing, the velocity task, the TPU mask encodings, other model families)
+tracing, rematerialization, the TPU mask encodings, other model families)
 raises NotImplementedError when set to a non-default value instead of
 being ignored.  ROADMAP.md lists what waits.
+
+The neighbor routes: ``--impl masked`` (the default) runs the direct
+kernels B/C, or with ``--mask_dtype index`` the masked index route
+(kernels D/E, core ``--masked_core``); ``--impl block`` runs the block
+kernels F/G.  The TPU's one-hot mask encodings (``--mask_dtype auto`` as
+einsum masks, int8, int4) and ``--impl banded`` are not ported.
 """
 
 from __future__ import annotations
@@ -14,7 +20,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Dataset constants (reference utils.py:142-153, 530-545)
@@ -64,8 +70,10 @@ MODEL_TAGLIST = ["arae", "boot", "cari", "drac", "erid", "forn", "gemi",
 
 MODEL_FAMILIES = ("set", "shiftinv", "shiftinv15", "attn", "shiftinv_vel")
 # families the port runs; the others raise NotImplementedError
-PORTED_FAMILIES = ("shiftinv",)
+PORTED_FAMILIES = ("shiftinv", "shiftinv_vel")
 DTYPES = ("float32", "bfloat16")
+NEIGHBOR_IMPLS = ("masked", "block")          # "banded" is not ported
+MASK_DTYPES = ("auto", "index")               # int8/int4 are not ported
 
 
 def default_data_dir() -> str:
@@ -83,6 +91,8 @@ class DataConfig:
     num_val: int = NUM_VAL_SAMPLES
     seed: int = DATASET_SEED
     cells_per_side: int = CELLS_PER_SIDE
+    # joint position+velocity task (9 input channels, 6 target channels)
+    include_velocity: bool = False
     synthetic_num_samples: int = NUM_SAMPLES
 
 
@@ -95,6 +105,14 @@ class ModelConfig:
     dtype: str = "float32"                    # compute dtype for activations
     # lattice kNN search window in grid cells (ops/knn.py)
     knn_window: int = 3
+    # neighbor route: "masked" = direct kernels B/C, or the index route
+    # with mask_dtype "index"; "block" = block kernels F/G
+    neighbor_impl: str = "masked"
+    # first-choice core of the index route (None: ops/blocked.MASKED_CORE)
+    masked_core: Optional[Tuple[int, int, int]] = None
+    # "index": per-edge patch positions + kernels D/E (bf16 compute only;
+    # float32 downgrades to the direct route, recorded)
+    mask_dtype: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,12 +159,15 @@ def build_parser() -> argparse.ArgumentParser:
     adg("-t", "--num_test", type=int, default=NUM_TEST_SAMPLES, metavar="M",
         help="Number of samples in test set")
     adg("--model", type=str, default=None, choices=list(MODEL_FAMILIES),
-        help="Model family; default: 'set' if -k == -1 else 'shiftinv' "
-             "(the port runs shiftinv only)")
+        help="Model family; default: 'shiftinv_vel' with --velocity, else "
+             "'set' if -k == -1 else 'shiftinv' (the port runs shiftinv "
+             "and shiftinv_vel)")
     adg("--data_dir", type=str, default=None, help="Directory with ZA_*.npy cubes")
     adg("--synthetic", action="store_true",
         help="Force synthetic data even if real cubes exist")
-    adg("--velocity", action="store_true", help="(not ported) velocity task")
+    adg("--velocity", action="store_true",
+        help="Joint position+velocity task (9 input, 6 target channels; "
+             "model shiftinv_vel)")
     adg("--streaming", action="store_true", help="(not ported) mmap streaming")
     adg("--cells", type=int, default=CELLS_PER_SIDE,
         help="Cube cells per side (particles = cells^3)")
@@ -157,13 +178,18 @@ def build_parser() -> argparse.ArgumentParser:
     adg("--device_data", type=str, default="auto",
         choices=["auto", "on", "off"], help="(not ported)")
     adg("--masked_core", type=int, nargs=3, default=None, metavar="D",
-        help="(not ported) TPU mask block shape")
+        help="Core block shape of the --mask_dtype index route (3 ints); "
+             "default (4, 8, 8), stepping down to one that tiles the cube")
     adg("--impl", type=str, default="masked",
         choices=["masked", "block", "banded"],
-        help="Neighbor gather/scatter: the port runs its CUDA gather and "
-             "scatter kernels for the default; block/banded are not ported")
+        help="Neighbor gather/scatter: 'masked' runs the direct CUDA "
+             "kernels (or the index route with --mask_dtype index), "
+             "'block' the 3D-block kernels; 'banded' is not ported")
     adg("--mask_dtype", type=str, default="auto",
-        choices=["auto", "int8", "int4", "index"], help="(not ported)")
+        choices=["auto", "int8", "int4", "index"],
+        help="'index': per-edge patch positions and the block-selection "
+             "kernels (bf16; float32 runs the direct kernels); "
+             "int8/int4 are not ported")
     adg("--remat", action="store_true", help="(not ported)")
     adg("--knn_select", type=str, default="sort",
         choices=["sort", "iter", "pallas"],
@@ -187,23 +213,38 @@ def build_parser() -> argparse.ArgumentParser:
 
 # flag -> default: a non-default value names a path the port does not run
 _UNPORTED_FLAGS = {
-    "impl": "masked", "mask_dtype": "auto", "ensemble": 0, "data_axis": 1,
-    "particle_axis": 1, "streaming": False, "scan": 0, "device_data": "auto",
-    "restore": False, "trace": "", "velocity": False, "masked_core": None,
+    "ensemble": 0, "data_axis": 1, "particle_axis": 1, "streaming": False,
+    "scan": 0, "device_data": "auto", "restore": False, "trace": "",
     "remat": False,
 }
+
+
+def _not_ported(flag: str, value):
+    return NotImplementedError(f"--{flag}={value!r} is not ported to "
+                               "nbody_tpu_torch yet (ROADMAP.md)")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
     for flag, default in _UNPORTED_FLAGS.items():
         if getattr(args, flag) != default:
-            raise NotImplementedError(
-                f"--{flag}={getattr(args, flag)!r} is not ported to "
-                "nbody_tpu_torch yet (ROADMAP.md)")
+            raise _not_ported(flag, getattr(args, flag))
+    if args.impl not in NEIGHBOR_IMPLS:
+        raise _not_ported("impl", args.impl)
+    if args.mask_dtype not in MASK_DTYPES:
+        raise _not_ported("mask_dtype", args.mask_dtype)
+    if args.masked_core is not None and args.mask_dtype != "index":
+        # without the index route it would size the TPU einsum masks
+        raise _not_ported("masked_core", args.masked_core)
     family = args.model
     if family is None:
-        family = "set" if args.kneighbors == -1 else "shiftinv"
+        if args.velocity:
+            family = "shiftinv_vel"
+        else:
+            family = "set" if args.kneighbors == -1 else "shiftinv"
     check_family(family)
+    if args.velocity != (family == "shiftinv_vel"):
+        raise ValueError("--velocity trains the shiftinv_vel family and "
+                         f"shiftinv_vel needs it; got family {family!r}")
     data_dir = args.data_dir or default_data_dir()
     if args.synthetic:
         data_dir = os.path.join(os.path.sep, "nonexistent-force-synthetic")
@@ -214,6 +255,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         # as the JAX CLI: the reference's fixed 100 val cubes scaled to 10%
         num_val=min(NUM_VAL_SAMPLES, max(1, args.samples // 10)),
         cells_per_side=args.cells,
+        include_velocity=args.velocity,
         synthetic_num_samples=args.samples)
     model = ModelConfig(
         family=family,
@@ -221,6 +263,9 @@ def config_from_args(args: argparse.Namespace) -> Config:
         k_neighbors=(args.kneighbors if args.kneighbors > 0 else NUM_NEIGHBORS),
         seed=args.seed,
         knn_window=args.knn_window,
+        neighbor_impl=args.impl,
+        masked_core=(tuple(args.masked_core) if args.masked_core else None),
+        mask_dtype=args.mask_dtype,
         dtype=args.dtype)
     train = TrainConfig(
         num_iters=args.num_iters,
@@ -237,3 +282,17 @@ def check_family(family: str):
         raise NotImplementedError(
             f"model family {family!r} is not ported to nbody_tpu_torch yet "
             "(ROADMAP.md Queue 1)")
+
+
+def check_model_config(cfg: ModelConfig):
+    """Refuse what the port cannot run: unknown or unported families,
+    dtypes, neighbor routes and mask encodings."""
+    check_family(cfg.family)
+    if cfg.dtype not in DTYPES:
+        raise ValueError(f"dtype must be one of {DTYPES}, got {cfg.dtype!r}")
+    if cfg.neighbor_impl not in NEIGHBOR_IMPLS:
+        raise NotImplementedError(
+            f"neighbor_impl {cfg.neighbor_impl!r} is not ported (ROADMAP.md)")
+    if cfg.mask_dtype not in MASK_DTYPES:
+        raise NotImplementedError(
+            f"mask_dtype {cfg.mask_dtype!r} is not ported (ROADMAP.md)")

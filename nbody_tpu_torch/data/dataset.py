@@ -26,10 +26,14 @@ def load_cube_file(path: str) -> np.ndarray:
     return np.load(path)
 
 
-def features_from_raw(raw: np.ndarray) -> np.ndarray:
+def features_from_raw(raw: np.ndarray, include_velocity: bool = False) -> np.ndarray:
     """Raw (S, C, C, C, 19) -> (S, N, 9) features
     [q - box/2 (3), za_disp (3), fpm_disp - za_disp (3)], exactly as the
-    reference assembles X (utils.py:606-619)."""
+    reference assembles X (utils.py:606-619).
+
+    include_velocity=True -> (S, N, 15): inputs [q - box/2, za_disp,
+    za_vel] (9) and targets [fpm_disp - za_disp, fpm_vel - za_vel] (6),
+    the joint position+velocity task (data/dataset.py:32-57)."""
     s, cx, cy, cz, _ = raw.shape
     if not cx == cy == cz:
         raise ValueError(f"cubes must be cubic, got {raw.shape[1:4]}")
@@ -39,7 +43,12 @@ def features_from_raw(raw: np.ndarray) -> np.ndarray:
     fpm = raw[..., C.COL_FPM_DISP].reshape(s, n, 3) - za
     q = grid_positions_np(cx, box=box)
     q_centered = np.broadcast_to(q[None] - box / 2.0, za.shape)
-    return np.concatenate([q_centered, za, fpm], axis=-1).astype(np.float32)
+    if not include_velocity:
+        return np.concatenate([q_centered, za, fpm], axis=-1).astype(np.float32)
+    za_vel = raw[..., C.COL_ZA_VEL].reshape(s, n, 3)
+    fpm_vel = raw[..., C.COL_FPM_VEL].reshape(s, n, 3) - za_vel
+    return np.concatenate([q_centered, za, za_vel, fpm, fpm_vel],
+                          axis=-1).astype(np.float32)
 
 
 def split_dataset(x: np.ndarray, num_test: int, num_val: int = C.NUM_VAL_SAMPLES,
@@ -54,14 +63,14 @@ def split_dataset(x: np.ndarray, num_test: int, num_val: int = C.NUM_VAL_SAMPLES
 
 def split_batch(batch, num_inputs: int = 6):
     """(b, N, 9) -> inputs [q-64, za], target residual (reference
-    train.py:95-96).  Works on numpy arrays and torch tensors."""
+    train.py:95-96); (b, N, 15) with num_inputs=9 for the velocity task.
+    Works on numpy arrays and torch tensors."""
     return batch[..., :num_inputs], batch[..., num_inputs:]
 
 
 class Dataset:
-    """Train/val/test feature arrays (S_i, N, 9) and batching."""
-
-    num_input_channels = 6
+    """Train/val/test feature arrays (S_i, N, 9), or (S_i, N, 15) with
+    velocities, and batching."""
 
     def __init__(self, cfg: Optional[C.DataConfig] = None,
                  raw: Optional[np.ndarray] = None):
@@ -71,7 +80,8 @@ class Dataset:
             raw = self._load_raw(cfg)
         self.cells = raw.shape[1]
         self.box = 4.0 * self.cells
-        x = features_from_raw(raw)
+        self.num_input_channels = 9 if cfg.include_velocity else 6
+        x = features_from_raw(raw, include_velocity=cfg.include_velocity)
         num_test = min(cfg.num_test, max(1, x.shape[0] - cfg.num_val - 2))
         num_val = min(cfg.num_val, max(1, x.shape[0] - num_test - 1))
         self.X_train, self.X_val, self.X_test = split_dataset(

@@ -6,7 +6,8 @@ B (num_biases, k_out), held in f32 by a ``LayerParams`` module.  Init
 matches the reference's distributions (glorot-normal weights, biases
 1e-8) drawn from a ``torch.Generator``; the draws differ from the JAX
 package's threefry streams, so parity tests load the JAX parameters with
-``params_from_jax`` instead of matching seeds.
+``params_from_jax`` instead of matching seeds.  The shiftinv_vel family
+adds two output scalars (``ShiftInvVelParams``).
 """
 
 from __future__ import annotations
@@ -60,11 +61,26 @@ def init_network_params(generator: torch.Generator, channels: Sequence[int],
     return LayerParams(layers)
 
 
-def params_from_jax(layers: Sequence[Dict[str, np.ndarray]]) -> LayerParams:
-    """Load the JAX package's parameter pytree (a list of {"W", "B"}
-    arrays, converted to numpy) as the port's f32 parameters."""
-    return LayerParams([
-        {"W": torch.tensor(np.asarray(p["W"]), dtype=torch.float32),
-         "B": torch.tensor(np.asarray(p["B"]), dtype=torch.float32)}
-        for p in layers])
+class ShiftInvVelParams(LayerParams):
+    """The shiftinv_vel parameters: the layer stack plus ``T`` (2,), the
+    learnable output scalars (loc, vel) of models/shiftinv.py:235-244."""
+
+    def __init__(self, layers: Sequence[Dict[str, torch.Tensor]],
+                 t: torch.Tensor):
+        super().__init__(layers)
+        self.T = nn.Parameter(t)
+
+
+def params_from_jax(tree) -> LayerParams:
+    """Load the JAX package's parameter pytree, converted to numpy, as the
+    port's f32 parameters: a list of {"W", "B"} (shiftinv), or the
+    shiftinv_vel dict {"layers": [...], "T": (2,)}."""
+    def f32(a):
+        return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+    layers = tree["layers"] if isinstance(tree, dict) else tree
+    layers = [{"W": f32(p["W"]), "B": f32(p["B"])} for p in layers]
+    if isinstance(tree, dict):
+        return ShiftInvVelParams(layers, f32(tree["T"]))
+    return LayerParams(layers)
 

@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # per library: seconds nvcc took in this process (0.0 when it was cached)
 # and the compiler's output (ptxas register / shared-memory report)
@@ -87,8 +88,11 @@ def _compile(name: str, out: str) -> dict:
 def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     """Build csrc/<name>.cu if needed, load it, and declare each entry's
     argument types (``signatures``: entry -> ctypes types).  Every entry
-    returns an int (a cudaError_t)."""
+    returns an int (a cudaError_t).  Libraries of different names may be
+    built concurrently from several threads (one nvcc each)."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is not None:
             return lib

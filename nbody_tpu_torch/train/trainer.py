@@ -11,8 +11,10 @@ Coverage guard: the JAX trainer only warns when the lattice window cannot
 represent the data; the port refuses, as bench.py:192-199 does.  The exact
 check runs on the first batch of every ``fit``, and the O(N) margin
 monitor at every checkpoint triggers one exact check per episode of
-margin violations.  Sharded, ensemble and scan training, saving and
-restore are not ported yet (ROADMAP.md).
+margin violations.  After the first step the model's effective neighbor
+route (``impl_record``: direct, block or masked index, with its core) is
+printed and logged, as _log_effective_impl does in JAX.  Sharded, ensemble
+and scan training, saving and restore are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -74,6 +76,11 @@ class Trainer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.dataset = dataset if dataset is not None else make_dataset(cfg.data)
+        if self.dataset.num_input_channels != (
+                9 if cfg.model.family == "shiftinv_vel" else 6):
+            raise ValueError(f"model family {cfg.model.family!r} does not "
+                             f"take {self.dataset.num_input_channels} input "
+                             "channels (the velocity task needs shiftinv_vel)")
         self.box = self.dataset.box
         self.model = build_model(cfg.model, box=self.box, device=self.device)
         self.optimizer = make_optimizer(self.model, cfg.train.learn_rate)
@@ -105,6 +112,13 @@ class Trainer:
                 f"{v} rows fall outside what knn_window="
                 f"{self.cfg.model.knn_window} can represent; increase it")
 
+    def _log_effective_impl(self, verbose: bool):
+        """Record the neighbor route the model's forward took."""
+        rec = dict(self.model.impl_record)
+        self.metrics_log.append({"effective_neighbor_impl": rec})
+        if verbose:
+            print(f"effective neighbor route: {rec}", flush=True)
+
     def _monitor_coverage(self, x_in: torch.Tensor, rec: dict):
         """O(N) margin monitor folded into a checkpoint record; a nonzero
         margin count triggers one exact check per violation episode."""
@@ -135,6 +149,8 @@ class Trainer:
             if it == 0:
                 self._refuse_uncovered(x_in)
             loss = self.train_step(x_in, y_true)
+            if it == 0:
+                self._log_effective_impl(verbose)
             if (it + 1) % tcfg.checkpoint_every == 0:
                 last = float(loss)
                 rec = {"step": it + 1, "loss": last,
@@ -148,8 +164,9 @@ class Trainer:
 
     def evaluate(self, split: str = "test", verbose: bool = True):
         """Sequential eval sweep (reference train.py:140-174).  Returns
-        (per-batch errors, predictions cube (2, n, N, 3)): slot 0 is the
-        ground truth, slot 1 the prediction."""
+        (per-batch errors, predictions cube (2, n, N, 3), or (2, n, N, 6)
+        for the velocity task): slot 0 is the ground truth, slot 1 the
+        prediction."""
         bsize = self.cfg.train.batch_size
         x_split = {"val": self.dataset.X_val, "test": self.dataset.X_test}[split]
         n = (x_split.shape[0] // bsize) * bsize

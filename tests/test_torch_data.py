@@ -146,9 +146,9 @@ def test_parser_reference_flags():
     ["--impl", "banded"], ["--mask_dtype", "int8"], ["--ensemble", "2"],
     ["--data_axis", "2"], ["--particle_axis", "2"], ["--streaming"],
     ["--scan", "5"], ["--device_data", "on"], ["-r"], ["--trace", "t"],
-    ["--velocity"], ["--masked_core", "4", "4", "4"], ["--remat"],
+    ["--mask_dtype", "int4"], ["--masked_core", "4", "4", "4"], ["--remat"],
     ["--model", "attn"], ["--model", "set"], ["--model", "shiftinv15"],
-    ["--model", "shiftinv_vel"], ["-k", "-1"]])
+    ["--velocity", "--remat"], ["-k", "-1"]])
 def test_unported_flags_raise(flags):
     args = C.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError):

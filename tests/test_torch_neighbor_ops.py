@@ -147,7 +147,7 @@ def test_wrappers_refuse_bad_inputs():
 
 
 def test_kernel_build_is_content_addressed(tmp_path, monkeypatch):
-    for name in ("topk_kernels", "banded_kernels"):
+    for name in ("topk_kernels", "banded_kernels", "block_kernels"):
         path = build.library_path(name)
         assert path.startswith(build.BUILD_DIR) and path.endswith(".so")
         with open(build.source_path(name)) as f:

@@ -150,9 +150,13 @@ def test_init_matches_reference_distributions():
 
 
 def test_build_model_refuses_unported_families():
-    for fam in ("set", "attn", "shiftinv15", "shiftinv_vel"):
+    for fam in ("set", "attn", "shiftinv15"):
         with pytest.raises(NotImplementedError):
             build_model(C.ModelConfig(family=fam))
+    for cfg in (C.ModelConfig(neighbor_impl="banded"),
+                C.ModelConfig(mask_dtype="int8")):
+        with pytest.raises(NotImplementedError):
+            build_model(cfg)
     with pytest.raises(ValueError):
         build_model(C.ModelConfig(family="bogus"))
     with pytest.raises(ValueError):

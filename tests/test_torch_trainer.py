@@ -43,7 +43,10 @@ SLICE_MODULES = [
     "nbody_tpu_torch.physics.pbc", "nbody_tpu_torch.physics.losses",
     "nbody_tpu_torch.ops.kernels.build",
     "nbody_tpu_torch.ops.kernels.topk_kernels",
-    "nbody_tpu_torch.ops.kernels.banded_kernels", "nbody_tpu_torch.ops.knn",
+    "nbody_tpu_torch.ops.kernels.banded_kernels",
+    "nbody_tpu_torch.ops.kernels.block_kernels",
+    "nbody_tpu_torch.ops.kernels.idx_kernels", "nbody_tpu_torch.ops.knn",
+    "nbody_tpu_torch.ops.blocked",
     "nbody_tpu_torch.ops.banded", "nbody_tpu_torch.ops.graph_features",
     "nbody_tpu_torch.models.base", "nbody_tpu_torch.models.shiftinv",
     "nbody_tpu_torch.models.registry", "nbody_tpu_torch.train.trainer",
