@@ -30,9 +30,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
   8. the --impl block route at 32^3 b4: 3 bf16 fit steps on F and G;
   9. the same params and 32^3 batch through the index route (D/E) and the
      direct route (B/C) in bf16: loss within rtol 3e-2, gradient cosine
-     above 0.998.
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+     above 0.998;
+ 10. hold kernels H/I (the int8 / packed-int4 mask-dot pair) against their
+     plain versions at the 32^3 b4 core (4,8,8) shapes, on masks that
+     block_masks builds from the main path's graph, for every width
+     (gathers bit-equal, scatters within 1e-5 of the summed |terms|);
+     then general-valued masks at small shapes with ragged tails; the
+     autograd pair against the CPU; time kernel and plain version;
+ 11. the --mask_dtype int8 route through its entry points: Trainer with the
+     coverage guard, 5 bf16 fit steps and evaluate at 32^3 b4, counting
+     launches (H and I run; B-G do not); step time and peak memory; then
+     3 fit steps with int4, with the same checks;
+ 12. the same params and batch through the int8 route and the direct
+     route in bf16: loss within rtol 3e-2, gradient cosine above 0.998;
+ 13. hold kernel J (the fused layer boundary) against boundary_reference
+     at the scripts/bench_fused.py shapes in bf16 and at small shapes in
+     f32 and bf16, through its tensor-core and CUDA-core forms; time
+     kernel and plain version.
+The line before the last is {"kernels": [...]}, all ten kernels; the last
+line is {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -54,6 +70,11 @@ CELLS64 = 64
 SELECT_WIDTHS = (1, 6, 9, 16, 32, 64)
 INDEX_CORES = ((4, 8, 8), (8, 8, 8))
 BLOCK_SRC = "nbody_tpu_torch/csrc/block_kernels.cu"
+MASK_SRC = "nbody_tpu_torch/csrc/mask_kernels.cu"
+# widths the mask-dot kernels see on the int8 route: the counts, the
+# displacement gather and the channels 3-32-64-64-32-16-3
+MASK_WIDTHS = (1, 3, 16, 32, 64)
+MASK_CORE = (4, 8, 8)
 REPO_KERNELS = {
     "topk_min": ("nbody_tpu_torch/csrc/topk_kernels.cu",
                  "nbody_tpu/ops/pallas/topk_kernels.py:46"),
@@ -65,6 +86,10 @@ REPO_KERNELS = {
     "idx_dot_scatter": (BLOCK_SRC, "nbody_tpu/ops/pallas/idx_kernels.py:179"),
     "block_gather": (BLOCK_SRC, "nbody_tpu/ops/pallas/block_kernels.py:34"),
     "block_scatter": (BLOCK_SRC, "nbody_tpu/ops/pallas/block_kernels.py:67"),
+    "mask_dot_gather": (MASK_SRC, "nbody_tpu/ops/pallas/mask_kernels.py:112"),
+    "mask_dot_scatter": (MASK_SRC, "nbody_tpu/ops/pallas/mask_kernels.py:133"),
+    "fused_boundary_dot": (MASK_SRC,
+                           "nbody_tpu/ops/pallas/fused_kernels.py:66"),
 }
 
 
@@ -339,6 +364,103 @@ def check_select_kernels(dev, idx64, idx32):
     return rec
 
 
+def check_mask_kernels(dev, idx):
+    """Phase 10: kernels H/I against their plain versions at the int8
+    route's 32^3 b4 core (4,8,8) shapes on the main path's graph, on
+    general-valued masks with ragged tails, the autograd pair against the
+    CPU, and times.  Returns per-kernel records."""
+    from nbody_tpu_torch.ops import blocked
+    from nbody_tpu_torch.ops.kernels import mask_kernels as MK
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rec = {n: {"max_abs_err": 0.0} for n in ("mask_dot_gather", "mask_dot_scatter")}
+    bf = torch.bfloat16
+
+    def randn(shape, dt=bf):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    def note(name, err):
+        rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+
+    def hold(m, c, label, exact):
+        """One (masks, width) pair: gather bit-equal when `exact` (one-hot
+        masks), else both within 1e-5 of the summed |terms|."""
+        b, nb, et = m.shape[:3]
+        p = MK.patch_width(m)
+        absm = MK.pack_int4(MK.unpack_int4(m).abs()) if m.dtype == torch.uint8 \
+            else m.abs()
+        pat, ev = randn((b, nb, p, c)), randn((b, nb, et, c))
+        got, want = MK.dot_gather(m, pat), MK.mask_dot_gather_plain(m, pat)
+        if exact:
+            note("mask_dot_gather", float((got - want).abs().max()))
+            check(torch.equal(got, want), f"mask_dot_gather {label} C={c} "
+                                          "not bit-equal")
+            gworst = 0.0
+        else:
+            gerr, gworst = scatter_worst(got, want, MK.mask_dot_gather_plain(
+                absm, pat.abs()), False)
+            note("mask_dot_gather", gerr)
+        err, worst = scatter_worst(MK.dot_scatter(m, ev),
+                                   MK.mask_dot_scatter_plain(m, ev),
+                                   MK.mask_dot_scatter_plain(absm, ev.abs()), False)
+        note("mask_dot_scatter", err)
+        print(f"kernels H/I {label} {tuple(m.shape)} P={p} C={c:>2}: gather "
+              + ("bit-equal" if exact else f"worst err - tol {gworst:.3e}")
+              + f", scatter max|err| {err:.3e} (worst err - tol {worst:.3e})")
+        check(gworst <= 0 and worst <= 0, f"mask_dot {label} C={c} out of tolerance")
+
+    masks = {mdt: blocked.block_masks(idx, CELLS, WINDOW, dt, MASK_CORE,
+                                      drop_self_slot0=True)
+             for mdt, dt in (("int8", torch.int8), ("int4", "int4"))}
+    for c in MASK_WIDTHS:
+        for mdt, m in masks.items():
+            hold(m, c, mdt, True)
+    # dense products: general values in [-3, 3], tails in ET, P and C (P 216
+    # takes the byte loads, P 1152 the 16-byte loads)
+    for shape in ((2, 8, 200, 216), (1, 3, 520, 1152)):
+        m8 = torch.randint(-3, 4, shape, generator=g, device=dev,
+                           dtype=torch.int8)
+        for c in (3, 64, 80):
+            hold(m8, c, "general int8", False)
+            hold(MK.pack_int4(m8), c, "general int4", False)
+
+    # the autograd pair on 16 blocks, card against the CPU's plain versions
+    m = masks["int8"][:, :16].contiguous()
+    b, nb, et, p = m.shape
+    pat = randn((b, nb, p, 16)).requires_grad_()
+    ct = randn((b, nb, et, 16), torch.float32)
+    (gp,) = torch.autograd.grad(MK.mask_dot_gather(m, pat), pat, ct)
+    pc = pat.detach().cpu().requires_grad_()
+    (gpc,) = torch.autograd.grad(MK.mask_dot_gather(m.cpu(), pc), pc, ct.cpu())
+    _, gworst = scatter_worst(gp.cpu(), gpc, MK.mask_dot_scatter_plain(
+        m.cpu(), ct.abs().cpu()), True)
+    ev = randn((b, nb, et, 16)).requires_grad_()
+    ct2 = randn((b, nb, p, 16), torch.float32)
+    (ge,) = torch.autograd.grad(MK.mask_dot_scatter(m, ev), ev, ct2)
+    ec = ev.detach().cpu().requires_grad_()
+    (gec,) = torch.autograd.grad(MK.mask_dot_scatter(m.cpu(), ec), ec, ct2.cpu())
+    print(f"autograd mask pair: gather grad (kernel I) worst err - tol "
+          f"{gworst:.3e}; scatter grad (kernel H) bit-equal "
+          f"{torch.equal(ge.cpu(), gec)}")
+    check(gworst <= 0 and torch.equal(ge.cpu(), gec), "mask pair gradients disagree")
+
+    c = 64
+    for mdt, m in masks.items():
+        b, nb, et = m.shape[:3]
+        pat, ev = randn((b, nb, MK.patch_width(m), c)), randn((b, nb, et, c))
+        times = {"mask_dot_gather": (lambda: MK.dot_gather(m, pat),
+                                     lambda: MK.mask_dot_gather_plain(m, pat)),
+                 "mask_dot_scatter": (lambda: MK.dot_scatter(m, ev),
+                                      lambda: MK.mask_dot_scatter_plain(m, ev))}
+        for name, (kern, plain) in times.items():
+            ms, plain_ms = cuda_ms(kern, iters=10), cuda_ms(plain, iters=5)
+            if mdt == "int8":
+                rec[name].update(ms=ms, plain_ms=plain_ms)
+            print(f"time {name} {mdt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                  f"ms (32^3 b4 core {MASK_CORE}, {tuple(m.shape)}, C={c} bf16)")
+    return rec
+
+
 def reset_counts(*modules):
     for m in modules:
         m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
@@ -462,9 +584,124 @@ def run_block32(dev, C, dataset, counted):
     return counts
 
 
-def cross_route(dev, C, dataset):
-    """Phase 9: one batch, one set of params, the index route (D/E) against
-    the direct route (B/C), bf16 loss and gradients."""
+def run_int_route(dev, C, dataset, counted):
+    """Phase 11: the --mask_dtype int8 route at 32^3 b4 through the coverage
+    guard, Trainer.fit and evaluate, then int4 through fit.  Returns the
+    launch counts of the int8 fit + evaluate."""
+    from nbody_tpu_torch.data.dataset import split_batch
+    from nbody_tpu_torch.train.trainer import Trainer
+
+    x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
+    counts8 = None
+    for mdt, iters in (("int8", 5), ("int4", 3)):
+        cfg = C.Config(dataset.cfg, C.ModelConfig(
+            family="shiftinv", channels=tuple(C.GRAPH_CHANNELS), k_neighbors=K,
+            dtype="bfloat16", knn_window=WINDOW, mask_dtype=mdt),
+            C.TrainConfig(num_iters=iters, batch_size=BATCH, learn_rate=1e-3,
+                          checkpoint_every=1))
+        trainer = Trainer(cfg, dev, dataset=dataset)
+        if mdt == "int8":
+            cov = trainer.check_graph_coverage(x)
+            print(f"coverage guard (int8 route): {cov} violations")
+            check(cov == 0, "the lattice window does not cover the data")
+        reset_counts(*counted)
+        trainer.fit(verbose=True)
+        if mdt == "int8":
+            errors, preds = trainer.evaluate("test", verbose=True)
+            check(preds.shape == (2, 4, CELLS ** 3, 3) and np.isfinite(preds).all()
+                  and np.isfinite(errors).all(),
+                  f"int8 evaluate cube {preds.shape} not finite / wrong shape")
+            print(f"int8 evaluate: cube {preds.shape}, errors {errors.tolist()}")
+        torch.cuda.synchronize()
+        counts = {k: v for m in counted for k, v in m.LAUNCHES.items()}
+        print(f"launches during the --mask_dtype {mdt} fit"
+              + (" + evaluate" if mdt == "int8" else "") + f": {counts}")
+        losses = [r["loss"] for r in trainer.metrics_log if "step" in r]
+        check(len(losses) == iters and np.isfinite(losses).all(),
+              f"non-finite {mdt} loss")
+        rec = trainer.model.impl_record
+        print(f"{mdt} route: {rec}; losses {losses}")
+        check(rec.get("impl") == "masked" and rec.get("core") == list(MASK_CORE)
+              and rec.get("mask_dtype") == mdt, f"{mdt} route is {rec}")
+        check(counts["mask_dot_gather"] > 0 and counts["mask_dot_scatter"] > 0,
+              f"kernels H/I did not run on the {mdt} route")
+        check(all(counts[n] == 0 for n in
+                  ("neighbor_gather", "neighbor_scatter_add", "idx_dot_gather",
+                   "idx_dot_scatter", "block_gather", "block_scatter")),
+              f"a kernel of B-G ran on the {mdt} route")
+        step_time(trainer, x, y, 5, f"32^3 b4 K14 w2 bf16 shiftinv, --mask_dtype "
+                                    f"{mdt} core {MASK_CORE}")
+        counts8 = counts8 or counts
+        del trainer
+    return counts8
+
+
+def check_fused(dev, idx):
+    """Phase 13: kernel J against boundary_reference at the
+    scripts/bench_fused.py shapes (32^3 b4 K14 core (4,8,8), C = q = 32,
+    bf16, its operand scales), and on 64 small blocks in f32 and bf16,
+    through both of its forms; times.  Returns (record, launches of the
+    checks)."""
+    from nbody_tpu_torch.ops import blocked
+    from nbody_tpu_torch.ops.kernels import fused_kernels as FK
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    rec = {"max_abs_err": 0.0}
+    reset_counts(FK)
+
+    def randn(shape, dt, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    def hold(masks, c, dt, scales, tol, label):
+        b, nb, et, p = masks.shape
+        args = (randn((b, nb, p, c), dt, scales[0]),
+                randn((b, nb, et, c), dt, scales[1]),
+                randn((c, c), dt, scales[2]), randn((c, c), dt, scales[2]))
+        _, tc = FK.kernel_form(p, c, c, masks.dtype, dev)
+        label += " tensor-core form" if tc else " CUDA-core form"
+        got = FK.fused_boundary_dot(masks, *args)
+        want = FK.boundary_reference(masks, *args)
+        for i, (name, gv, wv) in enumerate(zip(("act", "h1", "s"), got, want)):
+            rtol, atol = tol[i]
+            err = (gv.float() - wv.float()).abs()
+            worst = float((err - (atol + rtol * wv.float().abs())).max())
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+            print(f"kernel J {label} {tuple(masks.shape)} C=q={c} {name}: "
+                  f"max|err| {float(err.max()):.3e} (rtol {rtol}, atol {atol}; "
+                  f"worst {worst:.3e})")
+            check(worst <= 0 and gv.dtype == wv.dtype,
+                  f"fused_boundary_dot {label} {name} out of tolerance")
+        return args
+
+    bf = torch.bfloat16
+    masks = blocked.block_masks(idx, CELLS, WINDOW, bf, MASK_CORE,
+                                drop_self_slot0=True)
+    args = hold(masks, 32, bf, (1.0, 0.01, 0.1),
+                ((2e-2, 2e-2), (2e-2, 2e-1), (2e-2, 2e-1)), "bfloat16")
+    # both forms on 64 blocks: f32 at core (2,2,2) (P 216; CUDA cores,
+    # exact f32), bf16 at core (2,2,4) (P 288, ET 208: a ragged last row
+    # tile) with C 16 (tensor cores) and C 8 (CUDA cores)
+    bf_tol = ((2e-2, 2e-2), (2e-2, 2e-1), (2e-2, 2e-1))
+    for dt, core, c, tol in ((torch.float32, (2, 2, 2), 16, ((1e-5, 1e-5),) * 3),
+                             (bf, (2, 2, 4), 16, bf_tol), (bf, (2, 2, 4), 8, bf_tol)):
+        small = blocked.block_masks(idx[:1], CELLS, WINDOW, dt, core,
+                                    drop_self_slot0=True)[:, :64].contiguous()
+        hold(small, c, dt, (1.0, 1.0, 1.0), tol, str(dt).split(".")[-1])
+    launches = FK.LAUNCHES["fused_boundary_dot"]
+    rec["ms"] = cuda_ms(lambda: FK.fused_boundary_dot(masks, *args), iters=3,
+                        warmup=1)
+    rec["plain_ms"] = cuda_ms(lambda: FK.boundary_reference(masks, *args),
+                              iters=3, warmup=1)
+    print(f"time fused_boundary_dot: kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms (bench_fused shapes {tuple(masks.shape)}, "
+          "C=q=32 bf16)")
+    return rec, launches
+
+
+def cross_route(dev, C, dataset, mask_dtype="index"):
+    """Phases 9 and 12: one batch, one set of params, the index (D/E) or
+    int8 (H/I) route against the direct route (B/C), bf16 loss and
+    gradients."""
     from nbody_tpu_torch.data.dataset import split_batch
     from nbody_tpu_torch.models.registry import build_model
     from nbody_tpu_torch.physics.losses import loss_za
@@ -472,10 +709,10 @@ def cross_route(dev, C, dataset):
     x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
     out = {}
     params = None
-    for route, mask_dtype in (("direct", "auto"), ("index", "index")):
+    for route, mdt in (("direct", "auto"), ("masked", mask_dtype)):
         model = build_model(C.ModelConfig(
             family="shiftinv", channels=tuple(C.GRAPH_CHANNELS), k_neighbors=K,
-            dtype="bfloat16", knn_window=WINDOW, mask_dtype=mask_dtype),
+            dtype="bfloat16", knn_window=WINDOW, mask_dtype=mdt),
             box=4.0 * CELLS, device=dev)
         if params is None:
             params = model.params
@@ -485,14 +722,15 @@ def cross_route(dev, C, dataset):
         loss.backward()
         grads = torch.cat([p.grad.double().ravel() for p in model.parameters()])
         out[route] = (float(loss.detach()), grads, dict(model.impl_record))
-    (ld, gd, rd), (li, gi, ri) = out["direct"], out["index"]
+    (ld, gd, rd), (li, gi, ri) = out["direct"], out["masked"]
     rel = abs(li - ld) / abs(ld)
     cos = float(gd @ gi / (gd.norm() * gi.norm()))
     print(f"cross-route bf16 (32^3 b4): direct {rd['impl']} loss {ld!r}, "
-          f"index {ri['impl']} {ri['core']} loss {li!r}: rel {rel:.2e}, "
+          f"{mask_dtype} {ri['impl']} {ri['core']} loss {li!r}: rel {rel:.2e}, "
           f"gradient cosine {cos:.6f}")
-    check(rd["impl"] == "direct" and ri["impl"] == "masked", "routes not taken")
-    check(rel <= 3e-2 and cos > 0.998, "index and direct routes disagree")
+    check(rd["impl"] == "direct" and ri["impl"] == "masked"
+          and ri["mask_dtype"] == mask_dtype, "routes not taken")
+    check(rel <= 3e-2 and cos > 0.998, f"{mask_dtype} and direct routes disagree")
 
 
 def main() -> int:
@@ -504,7 +742,8 @@ def main() -> int:
     from nbody_tpu_torch.data.dataset import Dataset, split_batch
     from nbody_tpu_torch.models.registry import build_model
     from nbody_tpu_torch.ops.kernels import (banded_kernels, block_kernels, build,
-                                             idx_kernels, topk_kernels)
+                                             idx_kernels, mask_kernels,
+                                             topk_kernels)
     from nbody_tpu_torch.ops.knn import lattice_sq_dist
     from nbody_tpu_torch.physics.losses import loss_za
     from nbody_tpu_torch.train.trainer import Trainer
@@ -520,7 +759,7 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     libraries = (topk_kernels.library, banded_kernels.library,
-                 block_kernels.library)
+                 block_kernels.library, mask_kernels.library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda load: load(), libraries))
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
@@ -562,7 +801,8 @@ def main() -> int:
     cov = trainer.check_graph_coverage(x0)
     print(f"coverage guard: {cov} violations")
     check(cov == 0, "the lattice window does not cover the data")
-    counted = (topk_kernels, banded_kernels, idx_kernels, block_kernels)
+    counted = (topk_kernels, banded_kernels, idx_kernels, block_kernels,
+               mask_kernels)
     reset_counts(*counted)
     t0 = time.perf_counter()
     trainer.fit(verbose=True)
@@ -622,7 +862,17 @@ def main() -> int:
     for n in ("block_gather", "block_scatter"):
         counters[n] = counts_block[n]
     # 9. index route against the direct route
-    cross_route(dev, C, dataset)
+    cross_route(dev, C, dataset, "index")
+    # 10. kernels H/I vs plain versions, on the main path's graph
+    rec.update(check_mask_kernels(dev, idx0))
+    # 11. the int8 and int4 mask routes
+    counts_int = run_int_route(dev, C, dataset, counted)
+    for n in ("mask_dot_gather", "mask_dot_scatter"):
+        counters[n] = counts_int[n]
+    # 12. int8 route against the direct route
+    cross_route(dev, C, dataset, "int8")
+    # 13. kernel J vs boundary_reference
+    rec["fused_boundary_dot"], counters["fused_boundary_dot"] = check_fused(dev, idx0)
 
     kernels = [{"name": n, "route": "cuda", "source": REPO_KERNELS[n][0],
                 "replaces": REPO_KERNELS[n][1], "launches": counters[n],

@@ -5,6 +5,9 @@
     python -m nbody_tpu_torch.cli.train --model shiftinv_vel --velocity \\
         --cells 64 -b 1 --dtype bfloat16 --knn_window 2 --mask_dtype index \\
         --synthetic --samples 8 -t 1 -i 20
+    python -m nbody_tpu_torch.cli.train --model shiftinv -k 14 --cells 32 \\
+        --knn_window 2 --dtype bfloat16 --mask_dtype int8 --synthetic \\
+        --samples 16 -t 4 -i 20
     python -m nbody_tpu_torch.cli.train --platform cpu --cells 8 -i 4 ...
 
 Runs fit, then evaluate on the test split, and prints the reference-style

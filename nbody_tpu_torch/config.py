@@ -9,10 +9,13 @@ raises NotImplementedError when set to a non-default value instead of
 being ignored.  ROADMAP.md lists what waits.
 
 The neighbor routes: ``--impl masked`` (the default) runs the direct
-kernels B/C, or with ``--mask_dtype index`` the masked index route
-(kernels D/E, core ``--masked_core``); ``--impl block`` runs the block
-kernels F/G.  The TPU's one-hot mask encodings (``--mask_dtype auto`` as
-einsum masks, int8, int4) and ``--impl banded`` are not ported.
+kernels B/C; with ``--mask_dtype index`` the masked index route (kernels
+D/E), and with ``--mask_dtype int8|int4`` the integer-mask route (one-hot
+masks stored as int8 or packed int4, kernels H/I), both on the core
+``--masked_core`` or the first candidate that fits; ``--impl block`` runs
+the block kernels F/G.  ``--mask_dtype auto`` keeps the direct kernels
+(the TPU's bf16/f32 einsum masks are not ported), and ``--impl banded``
+is not ported.
 """
 
 from __future__ import annotations
@@ -73,7 +76,7 @@ MODEL_FAMILIES = ("set", "shiftinv", "shiftinv15", "attn", "shiftinv_vel")
 PORTED_FAMILIES = ("shiftinv", "shiftinv_vel")
 DTYPES = ("float32", "bfloat16")
 NEIGHBOR_IMPLS = ("masked", "block")          # "banded" is not ported
-MASK_DTYPES = ("auto", "index")               # int8/int4 are not ported
+MASK_DTYPES = ("auto", "index", "int8", "int4")
 
 
 def default_data_dir() -> str:
@@ -108,10 +111,12 @@ class ModelConfig:
     # neighbor route: "masked" = direct kernels B/C, or the index route
     # with mask_dtype "index"; "block" = block kernels F/G
     neighbor_impl: str = "masked"
-    # first-choice core of the index route (None: ops/blocked.MASKED_CORE)
+    # first-choice core of the index and integer-mask routes (None:
+    # ops/blocked.MASKED_CORE)
     masked_core: Optional[Tuple[int, int, int]] = None
-    # "index": per-edge patch positions + kernels D/E (bf16 compute only;
-    # float32 downgrades to the direct route, recorded)
+    # "index": per-edge patch positions + kernels D/E; "int8" / "int4":
+    # one-hot masks + kernels H/I (bf16 compute only; float32 downgrades
+    # to the direct route, recorded)
     mask_dtype: str = "auto"
 
 
@@ -178,8 +183,9 @@ def build_parser() -> argparse.ArgumentParser:
     adg("--device_data", type=str, default="auto",
         choices=["auto", "on", "off"], help="(not ported)")
     adg("--masked_core", type=int, nargs=3, default=None, metavar="D",
-        help="Core block shape of the --mask_dtype index route (3 ints); "
-             "default (4, 8, 8), stepping down to one that tiles the cube")
+        help="Core block shape of the --mask_dtype index|int8|int4 routes "
+             "(3 ints); default (4, 8, 8), stepping down to one that tiles "
+             "the cube (and, for int8/int4, whose masks fit 8 GiB)")
     adg("--impl", type=str, default="masked",
         choices=["masked", "block", "banded"],
         help="Neighbor gather/scatter: 'masked' runs the direct CUDA "
@@ -188,8 +194,9 @@ def build_parser() -> argparse.ArgumentParser:
     adg("--mask_dtype", type=str, default="auto",
         choices=["auto", "int8", "int4", "index"],
         help="'index': per-edge patch positions and the block-selection "
-             "kernels (bf16; float32 runs the direct kernels); "
-             "int8/int4 are not ported")
+             "kernels; 'int8'/'int4': one-hot masks (int4 packed two per "
+             "byte) and the mask-dot kernels (both bf16; float32 runs the "
+             "direct kernels); 'auto': the direct kernels")
     adg("--remat", action="store_true", help="(not ported)")
     adg("--knn_select", type=str, default="sort",
         choices=["sort", "iter", "pallas"],
@@ -232,8 +239,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         raise _not_ported("impl", args.impl)
     if args.mask_dtype not in MASK_DTYPES:
         raise _not_ported("mask_dtype", args.mask_dtype)
-    if args.masked_core is not None and args.mask_dtype != "index":
-        # without the index route it would size the TPU einsum masks
+    if args.masked_core is not None and args.mask_dtype == "auto":
+        # on the direct route it would size the TPU einsum masks
         raise _not_ported("masked_core", args.masked_core)
     family = args.model
     if family is None:

@@ -12,12 +12,15 @@ f32 predictions.
 
 Each forward also picks its neighbor route (``_make_masks``) and records
 it in ``impl_record``: the masked index route (kernels D/E) for
-``mask_dtype="index"`` in bf16, the block route (kernels F/G) for
-``neighbor_impl="block"``, else the direct kernels B/C.  Other families
-raise NotImplementedError (ROADMAP.md).
+``mask_dtype="index"`` and the integer-mask route (kernels H/I) for
+``mask_dtype="int8"|"int4"``, both in bf16; the block route (kernels F/G)
+for ``neighbor_impl="block"``; else the direct kernels B/C.  Other
+families raise NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import torch
@@ -31,9 +34,14 @@ from nbody_tpu_torch.ops.knn import knn_periodic_batch, knn_periodic_lattice_bat
 # the exact O(N^2) coverage oracle runs on the device up to this size; above
 # it the host searches exactly with a periodic k-d tree (exact_knn_host)
 EXACT_KNN_MAX_PARTICLES = 100_000
-# the index route's core candidates after --masked_core, in the JAX order
-# (registry.py:259); the first that tiles the cube is taken
-INDEX_CORES = (blocked.MASKED_CORE, (4, 4, 8), (2, 4, 8), (2, 2, 4), (2, 2, 2))
+# the masked routes' core candidates after --masked_core, in the JAX order
+# (registry.py:259); the first that tiles the cube (and, for int8/int4,
+# whose masks fit MASKED_BYTES_CAP) is taken
+MASKED_CORES = (blocked.MASKED_CORE, (4, 4, 8), (2, 4, 8), (2, 2, 4), (2, 2, 2))
+# the int8/int4 mask array's cap, estimated as JAX does at one byte per
+# (edge, patch site) for both encodings (jnp.int4's itemsize is 1), so that
+# the same core is chosen; the packed int4 array holds half of it
+MASKED_BYTES_CAP = 8 * 1024 ** 3
 
 
 def _graph_geometry(x_in: torch.Tensor, box: float):
@@ -47,36 +55,61 @@ def _graph_geometry(x_in: torch.Tensor, box: float):
 def _make_masks(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
                 dtype: torch.dtype, record: dict):
     """The neighbor route of one forward -> (masks, lattice), filling
-    ``record`` (impl, core, mask_dtype, downgrade) as _make_masks and
-    Trainer._log_effective_impl do in JAX (registry.py:218-301).
+    ``record`` (impl, core, mask_dtype, downgrade; mask_bytes on the
+    int8/int4 route) as _make_masks and Trainer._log_effective_impl do in
+    JAX (registry.py:218-301).
 
-    masks = per-edge patch positions (block_positions, self slot dropped)
-    and lattice = (cells, window, core, True) select the masked index
-    route; (None, (cells, window)) the block route; (None, None) the
-    direct kernels B/C.  The index kernels select in bf16, so exact-f32
-    mode downgrades ``index`` to the direct route and records it."""
+    masks = per-edge patch positions (block_positions) or int8 / packed
+    int4 one-hot masks (block_masks), self slot dropped, with lattice =
+    (cells, window, core, True) select the masked routes; (None, (cells,
+    window)) the block route; (None, None) the direct kernels B/C.  The
+    mask kernels select in bf16, so exact-f32 mode downgrades ``index``,
+    ``int8`` and ``int4`` to the direct route and records it.  int8/int4
+    take the first candidate core whose masks fit MASKED_BYTES_CAP and fall
+    back to the block route, with a warning, when none does."""
+    record.clear()
     record.update(impl="direct", core=None, mask_dtype=None, downgrade=None)
+    b, k = idx.shape[0], idx.shape[-1]
     if n != cells ** 3:
         return None, None
     if cfg.neighbor_impl == "block":
         record.update(impl="block", core=list(blocked.CORE))
         return None, (cells, cfg.knn_window)
-    if cfg.mask_dtype != "index":
+    req = cfg.mask_dtype
+    if req not in ("index", "int8", "int4"):
         return None, None
     if dtype == torch.float32:
-        record.update(downgrade="mask_dtype 'index' in float32: the index "
+        record.update(downgrade=f"mask_dtype {req!r} in float32: the mask "
                                 "kernels select in bf16; direct kernels B/C")
         return None, None
-    candidates = ([tuple(cfg.masked_core)] if cfg.masked_core else []) + list(INDEX_CORES)
+    candidates = ([tuple(cfg.masked_core)] if cfg.masked_core else []) + list(MASKED_CORES)
     for core in candidates:
-        if all(cells % d == 0 for d in core):
+        if any(cells % d for d in core):
+            continue
+        lat = (cells, cfg.knn_window, core, True)
+        if req == "index":
             record.update(impl="masked", core=list(core), mask_dtype="index")
-            pos = blocked.block_positions(idx, cells, cfg.knn_window, core=core,
-                                          drop_self_slot0=True)
-            return pos, (cells, cfg.knn_window, core, True)
-    record.update(downgrade=f"no index core tiles a {cells}^3 cube; "
-                            "direct kernels B/C")
-    return None, None
+            return blocked.block_positions(idx, cells, cfg.knn_window, core=core,
+                                           drop_self_slot0=True), lat
+        if b * n * (k - 1) * blocked.patch_size(cells, cfg.knn_window, core) \
+                <= MASKED_BYTES_CAP:
+            masks = blocked.block_masks(
+                idx, cells, cfg.knn_window, core=core, drop_self_slot0=True,
+                dtype=torch.int8 if req == "int8" else "int4")
+            record.update(impl="masked", core=list(core), mask_dtype=req,
+                          mask_bytes=masks.numel() * masks.element_size())
+            return masks, lat
+    if req == "index":
+        record.update(downgrade=f"no index core tiles a {cells}^3 cube; "
+                                "direct kernels B/C")
+        return None, None
+    why = (f"no candidate core's {req} masks fit the "
+           f"{MASKED_BYTES_CAP / 2 ** 30:.1f} GiB cap at this size")
+    warnings.warn(f"mask_dtype={req!r}: {why}; falling back to the block "
+                  "kernels", stacklevel=2)
+    record.update(impl="block", core=list(blocked.CORE),
+                  downgrade=f"{why}; block kernels F/G")
+    return None, (cells, cfg.knn_window)
 
 
 class ShiftInvModel(nn.Module):

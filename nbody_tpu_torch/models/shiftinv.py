@@ -14,10 +14,10 @@ with a mean over K.  The gather and scatter are the port's CUDA kernels
 (ops/banded.py picks the route from ``lattice`` / ``masks``); the weight
 products are plain torch matmuls, as they were plain XLA dots in JAX.
 
-On the masked index route (``masks`` = per-edge patch positions) the
-network keeps edge activations BLOCK-MAJOR (b, NB, R, K, C) between
-layers, as _shiftinv_network_blocks does in JAX: edges enter and leave the
-cube layout once.  The velocity model (shiftinv_vel) adds node velocities
+On the masked routes (``masks`` = per-edge patch positions, or int8 /
+packed int4 one-hot masks) the network keeps edge activations BLOCK-MAJOR
+(b, NB, R, K, C) between layers, as _shiftinv_network_blocks does in JAX:
+edges enter and leave the cube layout once.  The velocity model (shiftinv_vel) adds node velocities
 to the edge features and two learnable output scalars.
 """
 
@@ -109,7 +109,7 @@ def _shift_inv_layer_blocks(hB: torch.Tensor, layer_params, masks, cells: int,
                             window: int, counts: torch.Tensor, is_last: bool,
                             core, self_free: bool) -> torch.Tensor:
     """The 4-op layer on BLOCK-MAJOR edges hB (b, NB, R, K, C) over the
-    masked index route (shiftinv.py:133-181); same semantics as
+    masked routes (shiftinv.py:133-181); same semantics as
     shift_inv_layer, without the edge tensor's cube transposes."""
     w = layer_params["W"]
     bias = layer_params["B"][0]

@@ -2,10 +2,11 @@
 dispatch of nbody_tpu/ops/banded.py:178-322).
 
 Three routes, chosen by the ``lattice`` / ``masks`` arguments as in JAX:
-  * masks (per-edge patch positions from ops/blocked.block_positions)
-    with lattice=(cells, window, core, self_free): the masked index route,
-    ops/blocked.masked_* on kernels D/E; autograd runs through the patch
-    views and the kernels' own autograd pair;
+  * masks (per-edge patch positions from ops/blocked.block_positions, or
+    int8 / packed int4 masks from block_masks) with lattice=(cells,
+    window, core, self_free): the masked index or integer-mask route,
+    ops/blocked.masked_* on kernels D/E or H/I; autograd runs through the
+    patch views and the kernels' own autograd pairs;
   * lattice=(cells, window) without masks, on a cube the CORE block tiles
     (``_block_ok``): the ``--impl block`` route, kernels F/G;
   * otherwise: the direct kernels B/C.  The port computes their exact

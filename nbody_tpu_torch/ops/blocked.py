@@ -12,8 +12,11 @@ against the patch by a per-edge position in [0, P):
                                     the circularly padded cube (one copy);
   edge_block_positions              each edge's neighbor as a position in
                                     its block's patch (integer arithmetic);
+  block_masks                       the same positions as one-hot
+                                    (ET, P) masks, int8 or packed int4;
   kernels D/E (ops/kernels/idx_kernels.py, the index route of the masked
-  path) or F/G (ops/kernels/block_kernels.py, ``--impl block``)
+  path), H/I (ops/kernels/mask_kernels.py, the int8/int4 route) or F/G
+  (ops/kernels/block_kernels.py, ``--impl block``)
                                     the per-block selection and its sum;
   patches_fold                      the transpose of block_patches: the
                                     per-block (P, C) sums overlap-added
@@ -22,7 +25,10 @@ against the patch by a per-edge position in [0, P):
 Requires N == cells^3 in grid order and |offset| <= window per axis, which
 the lattice kNN guarantees.  The core shape travels as an argument; the
 JAX module's default cores are the two constants below (its set_core
-globals and the one-hot ``block_masks`` encoding are not ported).
+globals are not ported).  The masked ops take either positions (the index
+route) or integer masks (the int8/int4 route), as in JAX; the bf16/f32
+one-hot masks of JAX's einsum route are built here only as kernel J's
+input (the route itself runs the direct kernels in the port).
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ import torch
 
 from nbody_tpu_torch.ops.kernels import block_kernels as BK
 from nbody_tpu_torch.ops.kernels.idx_kernels import idx_dot_gather, idx_dot_scatter
+from nbody_tpu_torch.ops.kernels.mask_kernels import (mask_dot_gather,
+                                                      mask_dot_scatter)
+# the int4 packing of block_masks(dtype="int4"), for the plain versions and tests
+from nbody_tpu_torch.ops.kernels.mask_kernels import pack_int4, unpack_int4  # noqa: F401
 
 # default core of the --impl block route
 CORE = (4, 4, 8)
@@ -236,18 +246,70 @@ def block_positions(idx: torch.Tensor, cells: int, window: int,
     return edge_block_positions(idx, cells, window, core)
 
 
-def masked_gather(values: torch.Tensor, pos: torch.Tensor, cells: int,
+@torch.no_grad()
+def block_masks(idx: torch.Tensor, cells: int, window: int,
+                dtype=torch.int8, core: Sequence[int] = MASKED_CORE,
+                drop_self_slot0: bool = False) -> torch.Tensor:
+    """(B, N, K) lattice-kNN ids -> (B, NB, ET, P) one-hot selection masks,
+    the JAX encoding of block_positions (blocked.py:236-265).
+
+    dtype torch.int8 (the int8 route), torch.bfloat16 or torch.float32
+    (kernel J's masks), or "int4": packed (B, NB, ET, P/2) uint8, the entry
+    of even column p in the low nibble (ops/kernels/mask_kernels.py).  Built
+    by a scatter of ones at the positions, never a (..., P) comparison; a
+    position outside [0, P) leaves its row zero, as the comparison did."""
+    pos = block_positions(idx, cells, window, core, drop_self_slot0)
+    p = patch_size(cells, window, core)
+    valid = (pos >= 0) & (pos < p)
+    at = torch.where(valid, pos, 0).long()
+    if dtype == "int4":
+        if p % 2:
+            raise ValueError(f"int4 masks need an even patch size, P={p}")
+        one = torch.where(at % 2 == 0, 0x01, 0x10).to(torch.uint8)
+        out = torch.zeros(pos.shape + (p // 2,), dtype=torch.uint8,
+                          device=idx.device)
+        return out.scatter_(3, (at // 2)[..., None],
+                            (one * valid.to(torch.uint8))[..., None])
+    if dtype not in (torch.int8, torch.bfloat16, torch.float32):
+        raise ValueError(f"block_masks: dtype {dtype!r} is not one of int8, "
+                         "'int4', bfloat16, float32")
+    out = torch.zeros(pos.shape + (p,), dtype=dtype, device=idx.device)
+    return out.scatter_(3, at[..., None], valid[..., None].to(dtype))
+
+
+def _mask_contract_gather(masks: torch.Tensor,
+                          patches: torch.Tensor) -> torch.Tensor:
+    """(B, NB, P, C) patches -> (B, NB, ET, C) edges through the route's
+    masks: (B, NB, ET) int32 positions run kernel D (bf16 out), int8 or
+    packed int4 (B, NB, ET, P[/2]) masks kernel H (f32 out)."""
+    if masks.dim() == 3:
+        return idx_dot_gather(masks, patches)
+    return mask_dot_gather(masks, patches)
+
+
+def _mask_contract_scatter(masks: torch.Tensor, edges: torch.Tensor,
+                           p_size: int) -> torch.Tensor:
+    """The transpose: (B, NB, ET, C) -> (B, NB, P, C) f32 per-block sums
+    (kernel E for positions, I for masks; p_size = P, which the masks
+    carry themselves)."""
+    if masks.dim() == 3:
+        return idx_dot_scatter(masks, edges, p_size)
+    return mask_dot_scatter(masks, edges)
+
+
+def masked_gather(values: torch.Tensor, masks: torch.Tensor, cells: int,
                   window: int, core: Sequence[int] = MASKED_CORE,
                   self_slot0: bool = False) -> torch.Tensor:
-    """values (B, N, C), positions from block_positions -> (B, N, K, C) in
-    values' dtype (kernel D; the selection runs in bf16).  self_slot0:
-    slot 0 of the output is values itself."""
+    """values (B, N, C), positions from block_positions or masks from
+    block_masks -> (B, N, K, C) in values' dtype (kernel D or H; the
+    selection runs in bf16).  self_slot0: slot 0 of the output is values
+    itself."""
     b, n, c = values.shape
     bx, by, bz = core
     r = bx * by * bz
-    k = pos.shape[2] // r
+    k = masks.shape[2] // r
     patches = block_patches(values, cells, window, core)   # (B, NB, P, C)
-    out = idx_dot_gather(pos, patches)
+    out = _mask_contract_gather(masks, patches)
     out = out.reshape(b, -1, r, k * c)
     out = blocks_to_cube(out, cells, core).reshape(b, n, k, c).to(values.dtype)
     if self_slot0:
@@ -255,12 +317,12 @@ def masked_gather(values: torch.Tensor, pos: torch.Tensor, cells: int,
     return out
 
 
-def masked_scatter_add(vals: torch.Tensor, pos: torch.Tensor, cells: int,
+def masked_scatter_add(vals: torch.Tensor, masks: torch.Tensor, cells: int,
                        window: int, core: Sequence[int] = MASKED_CORE,
                        self_slot0: bool = False) -> torch.Tensor:
-    """vals (B, N, K, C) -> (B, N, C) sums by target id (kernel E, then the
-    f32 fold, then one cast to vals' dtype).  self_slot0: slot 0 targets
-    the particle itself and is added directly."""
+    """vals (B, N, K, C) -> (B, N, C) sums by target id (kernel E or I,
+    then the f32 fold, then one cast to vals' dtype).  self_slot0: slot 0
+    targets the particle itself and is added directly."""
     self_part = None
     if self_slot0:
         self_part = vals[:, :, 0, :]
@@ -269,14 +331,15 @@ def masked_scatter_add(vals: torch.Tensor, pos: torch.Tensor, cells: int,
     bx, by, bz = core
     v_blocks = cube_to_blocks(vals.reshape(b, n, k * c), cells, core)
     v_blocks = v_blocks.reshape(b, -1, bx * by * bz * k, c)
-    acc = idx_dot_scatter(pos, v_blocks, patch_size(cells, window, core))
+    acc = _mask_contract_scatter(masks, v_blocks,
+                                 patch_size(cells, window, core))
     out = patches_fold(acc, cells, window, core).to(vals.dtype)
     if self_part is not None:
         out = out + self_part
     return out
 
 
-def masked_gather_blocks(values: torch.Tensor, pos: torch.Tensor, cells: int,
+def masked_gather_blocks(values: torch.Tensor, masks: torch.Tensor, cells: int,
                          window: int, core: Sequence[int] = MASKED_CORE,
                          self_slot0: bool = False) -> torch.Tensor:
     """Cube node field (B, N, C) -> BLOCK-MAJOR edges (B, NB, R, K, C), for
@@ -285,16 +348,17 @@ def masked_gather_blocks(values: torch.Tensor, pos: torch.Tensor, cells: int,
     b, _, c = values.shape
     bx, by, bz = core
     r = bx * by * bz
-    k = pos.shape[2] // r
+    k = masks.shape[2] // r
     patches = block_patches(values, cells, window, core)
-    out = idx_dot_gather(pos, patches).reshape(b, -1, r, k, c).to(values.dtype)
+    out = _mask_contract_gather(masks, patches).reshape(b, -1, r, k, c).to(
+        values.dtype)
     if self_slot0:
         selfv = cube_to_blocks(values, cells, core)       # (B, NB, R, C)
         out = torch.cat([selfv[:, :, :, None, :], out], dim=3)
     return out
 
 
-def masked_scatter_add_blocks(vals: torch.Tensor, pos: torch.Tensor,
+def masked_scatter_add_blocks(vals: torch.Tensor, masks: torch.Tensor,
                               cells: int, window: int,
                               core: Sequence[int] = MASKED_CORE,
                               self_slot0: bool = False) -> torch.Tensor:
@@ -305,7 +369,7 @@ def masked_scatter_add_blocks(vals: torch.Tensor, pos: torch.Tensor,
         vals = vals[:, :, :, 1:, :]
     b, nb, r, k, c = vals.shape
     v = vals.reshape(b, nb, r * k, c)
-    acc = idx_dot_scatter(pos, v, patch_size(cells, window, core))
+    acc = _mask_contract_scatter(masks, v, patch_size(cells, window, core))
     out = patches_fold(acc, cells, window, core).to(vals.dtype)
     if self_part is not None:
         out = out + blocks_to_cube(self_part, cells, core)

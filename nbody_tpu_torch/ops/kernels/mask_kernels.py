@@ -1,0 +1,217 @@
+"""Kernels H and I: the mask-dot gather and scatter of the integer-mask
+route (``--mask_dtype int8|int4``), their autograd pair, and the int4
+packing.
+
+Replace nbody_tpu/ops/pallas/mask_kernels.py : mask_dot_gather and
+mask_dot_scatter (custom VJPs around ``_mask_dot_call``).  Per (batch,
+core block), with the block's masks M (ET, P) from ops/blocked.block_masks:
+  mask_dot_gather:  patches (B, NB, P, C) -> (B, NB, ET, C) f32 = M . patches
+  mask_dot_scatter: edges (B, NB, ET, C)  -> (B, NB, P, C)  f32 = M^T . edges
+The masks are int8 (B, NB, ET, P), or int4 packed two to a byte as uint8
+(B, NB, ET, P/2): the entry of even column p in the low nibble, each
+nibble a signed 4-bit value as jnp.int4 is (torch has no usable int4).
+Both ops are dense products over whatever values the masks hold; the mask
+is widened to bf16, the operand cast to bf16, and the products accumulate
+in f32, as in the Pallas kernels.  Callers fold the scatter's per-block
+sums with ops/blocked.patches_fold.
+
+Each op's gradient is the other op against the same masks on the bf16
+cotangent, cast to the primal's dtype; the masks get none
+(mask_kernels.py:105-150).  JAX's ``group`` / ``set_group`` (blocks per
+Pallas grid step, amortizing Mosaic's per-step cost on the TPU) is not
+carried over: on the H100 a CTA per row tile of each block is the grain.
+The kernels are csrc/mask_kernels.cu (the .cu file has the design note);
+each wrapper takes its plain PyTorch version only for a CPU tensor, and
+for a CUDA tensor launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from nbody_tpu_torch.ops.kernels import build
+
+# launches of the CUDA kernels in this process (reset by callers that count)
+LAUNCHES = {"mask_dot_gather": 0, "mask_dot_scatter": 0}
+MASK_DTYPES = (torch.int8, torch.uint8)      # int8, packed int4
+_INT_MAX = 2 ** 31 - 1
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIGNATURES = {
+    "mask_dot": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    "fused_boundary": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
+                       _I, _I, _I, _I, _I, _P),
+    "fused_boundary_smem_bytes": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
+    "mask_max_smem": (_I,),
+}
+
+
+def library():
+    """The built and loaded csrc/mask_kernels.cu (compiled at first use)."""
+    return build.load("mask_kernels", _SIGNATURES)
+
+
+# ---------------------------------------------------------------------------
+# int4 packing
+# ---------------------------------------------------------------------------
+
+def pack_int4(values: torch.Tensor) -> torch.Tensor:
+    """(..., P) integers in [-8, 7], P even -> (..., P/2) uint8: column 2j
+    in the low nibble of byte j, 2j+1 in the high nibble (two's
+    complement)."""
+    if values.shape[-1] % 2:
+        raise ValueError(f"int4 packing needs an even last axis, got "
+                         f"{values.shape[-1]}")
+    v = values.to(torch.int16)
+    if bool(((v < -8) | (v > 7)).any()):
+        raise ValueError("int4 values must lie in [-8, 7]")
+    v = v & 0xF
+    return (v[..., 0::2] | (v[..., 1::2] << 4)).to(torch.uint8)
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """(..., P/2) uint8 packed int4 -> (..., P) int8, sign-extended."""
+    if packed.dtype != torch.uint8:
+        raise ValueError(f"packed int4 masks are uint8, got {packed.dtype}")
+    v = packed.to(torch.int16)
+    nib = torch.stack([v & 0xF, v >> 4], dim=-1)
+    nib = nib - 16 * (nib >= 8).to(torch.int16)
+    return nib.reshape(*packed.shape[:-1], 2 * packed.shape[-1]).to(torch.int8)
+
+
+def patch_width(masks: torch.Tensor) -> int:
+    """P of int8 (…, P) or packed int4 (…, P/2) masks."""
+    return masks.shape[-1] * (2 if masks.dtype == torch.uint8 else 1)
+
+
+def widen(masks: torch.Tensor) -> torch.Tensor:
+    """int8 or packed int4 masks -> f32 (B, NB, ET, P) (exact)."""
+    m = unpack_int4(masks) if masks.dtype == torch.uint8 else masks
+    return m.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (kernel semantics, used for CPU tensors)
+# ---------------------------------------------------------------------------
+
+def mask_dot_gather_plain(masks: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel H: f32 matmul of the widened masks
+    and the bf16-rounded patches (exact products, f32 sums; TF32 must be
+    off on a card)."""
+    return torch.matmul(widen(masks), patches.to(torch.bfloat16).to(torch.float32))
+
+
+def mask_dot_scatter_plain(masks: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of kernel I."""
+    return torch.matmul(widen(masks).transpose(-1, -2),
+                        edges.to(torch.bfloat16).to(torch.float32))
+
+
+# ---------------------------------------------------------------------------
+# kernels H and I
+# ---------------------------------------------------------------------------
+
+def check_masks(masks: torch.Tensor, x: torch.Tensor, transpose: bool, name: str):
+    """Shapes, types and devices of a (masks, patches|edges) pair; on CUDA
+    also what the kernel takes."""
+    if masks.dim() != 4 or x.dim() != 4 or x.shape[:2] != masks.shape[:2]:
+        raise ValueError(f"{name}: bad shapes masks {tuple(masks.shape)}, "
+                         f"operand {tuple(x.shape)}")
+    if masks.dtype not in MASK_DTYPES:
+        raise ValueError(f"{name}: masks must be int8 or packed int4 (uint8), "
+                         f"got {masks.dtype}")
+    rows = masks.shape[2] if transpose else patch_width(masks)
+    if x.shape[2] != rows:
+        raise ValueError(f"{name}: operand has {x.shape[2]} rows, the masks "
+                         f"{rows}")
+    if x.device != masks.device:
+        raise ValueError(f"{name}: tensors on {x.device} and {masks.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {x.device}")
+    if x.device.type == "cuda" and not masks.is_contiguous():
+        raise ValueError(f"{name} kernel takes contiguous masks")
+
+
+def _launch(masks: torch.Tensor, x: torch.Tensor, transpose: bool,
+            name: str) -> torch.Tensor:
+    b, nb, et = masks.shape[:3]
+    p, c = patch_width(masks), x.shape[3]
+    # one CTA per (block, row tile of at most 128 rows, 64 columns)
+    if b * nb * (max(et, p) // 128 + 1) > _INT_MAX or c > 64 * 65535:
+        raise ValueError(f"{name}: too large for one launch")
+    x = x.contiguous()
+    out = torch.empty((b, nb, p if transpose else et, c), dtype=torch.float32,
+                      device=x.device)
+    err = library().mask_dot(
+        masks.data_ptr(), x.data_ptr(), out.data_ptr(), b * nb, et, p, c,
+        int(transpose), int(masks.dtype == torch.uint8), x.device.index,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch(err, f"mask_dot ({name})")
+    return out
+
+
+def dot_gather(masks: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
+    """Kernel H: (B, NB, ET, P|P/2) masks x (B, NB, P, C) -> (B, NB, ET, C)
+    f32."""
+    check_masks(masks, patches, False, "mask_dot_gather")
+    patches = patches.to(torch.bfloat16)
+    if patches.device.type == "cpu":
+        return mask_dot_gather_plain(masks, patches)
+    out = _launch(masks, patches, False, "mask_dot_gather")
+    LAUNCHES["mask_dot_gather"] += 1
+    return out
+
+
+def dot_scatter(masks: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Kernel I: masks x (B, NB, ET, C) -> (B, NB, P, C) f32."""
+    check_masks(masks, edges, True, "mask_dot_scatter")
+    edges = edges.to(torch.bfloat16)
+    if edges.device.type == "cpu":
+        return mask_dot_scatter_plain(masks, edges)
+    out = _launch(masks, edges, True, "mask_dot_scatter")
+    LAUNCHES["mask_dot_scatter"] += 1
+    return out
+
+
+class MaskDotGather(torch.autograd.Function):
+    """patches -> M . patches (f32); grad: kernel I on the bf16 cotangent."""
+
+    @staticmethod
+    def forward(ctx, masks, patches):
+        ctx.save_for_backward(masks)
+        ctx.dtype = patches.dtype
+        return dot_gather(masks, patches)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (masks,) = ctx.saved_tensors
+        return None, dot_scatter(masks, ct.to(torch.bfloat16)).to(ctx.dtype)
+
+
+class MaskDotScatter(torch.autograd.Function):
+    """edges -> M^T . edges (f32); grad: kernel H on the bf16 cotangent."""
+
+    @staticmethod
+    def forward(ctx, masks, edges):
+        ctx.save_for_backward(masks)
+        ctx.dtype = edges.dtype
+        return dot_scatter(masks, edges)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (masks,) = ctx.saved_tensors
+        return None, dot_gather(masks, ct.to(torch.bfloat16)).to(ctx.dtype)
+
+
+def mask_dot_gather(masks: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
+    """(B, NB, ET, P) int8 or (B, NB, ET, P/2) packed int4 masks x
+    (B, NB, P, C) -> (B, NB, ET, C) f32, differentiable in the patches."""
+    return MaskDotGather.apply(masks, patches)
+
+
+def mask_dot_scatter(masks: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """masks x (B, NB, ET, C) -> (B, NB, P, C) f32 per-block sums (fold
+    them with ops/blocked.patches_fold), differentiable in the edges."""
+    return MaskDotScatter.apply(masks, edges)

@@ -12,8 +12,9 @@ represent the data; the port refuses, as bench.py:192-199 does.  The exact
 check runs on the first batch of every ``fit``, and the O(N) margin
 monitor at every checkpoint triggers one exact check per episode of
 margin violations.  After the first step the model's effective neighbor
-route (``impl_record``: direct, block or masked index, with its core) is
-printed and logged, as _log_effective_impl does in JAX.  Sharded, ensemble
+route (``impl_record``: direct, block, or masked with its core and mask
+dtype, index, int8 or int4) is printed and logged, as _log_effective_impl
+does in JAX.  Sharded, ensemble
 and scan training, saving and restore are not ported yet (ROADMAP.md).
 """
 

@@ -143,10 +143,10 @@ def test_parser_reference_flags():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--impl", "banded"], ["--mask_dtype", "int8"], ["--ensemble", "2"],
+    ["--impl", "banded"], ["--ensemble", "2"],
     ["--data_axis", "2"], ["--particle_axis", "2"], ["--streaming"],
     ["--scan", "5"], ["--device_data", "on"], ["-r"], ["--trace", "t"],
-    ["--mask_dtype", "int4"], ["--masked_core", "4", "4", "4"], ["--remat"],
+    ["--masked_core", "4", "4", "4"], ["--remat"],
     ["--model", "attn"], ["--model", "set"], ["--model", "shiftinv15"],
     ["--velocity", "--remat"], ["-k", "-1"]])
 def test_unported_flags_raise(flags):

@@ -153,10 +153,10 @@ def test_build_model_refuses_unported_families():
     for fam in ("set", "attn", "shiftinv15"):
         with pytest.raises(NotImplementedError):
             build_model(C.ModelConfig(family=fam))
-    for cfg in (C.ModelConfig(neighbor_impl="banded"),
-                C.ModelConfig(mask_dtype="int8")):
-        with pytest.raises(NotImplementedError):
-            build_model(cfg)
+    with pytest.raises(NotImplementedError):
+        build_model(C.ModelConfig(neighbor_impl="banded"))
+    # the int8 mask route is ported (tests/test_torch_mask_route.py)
+    assert build_model(C.ModelConfig(mask_dtype="int8")).cfg.mask_dtype == "int8"
     with pytest.raises(ValueError):
         build_model(C.ModelConfig(family="bogus"))
     with pytest.raises(ValueError):

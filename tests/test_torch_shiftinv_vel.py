@@ -317,8 +317,10 @@ def test_config_velocity_and_route_flags():
     for flags in (["--velocity", "--model", "shiftinv"], ["--model", "shiftinv_vel"]):
         with pytest.raises(ValueError):
             C.config_from_args(C.build_parser().parse_args(flags))
+    # int4 masks are ported (tests/test_torch_mask_route.py); banded is not
+    assert build_model(C.ModelConfig(mask_dtype="int4")).cfg.mask_dtype == "int4"
     with pytest.raises(NotImplementedError):
-        build_model(C.ModelConfig(mask_dtype="int4"))
+        C.config_from_args(C.build_parser().parse_args(["--impl", "banded"]))
 
 
 def test_cli_velocity_index_cpu(capsys):
