@@ -7,21 +7,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
   1. find the card; print its name and nvidia-smi's name and power limit;
   2. build the CUDA kernels from nbody_tpu_torch/csrc with nvcc, one nvcc
      per source, all started together;
-  3. hold kernels A-C against their plain PyTorch versions on the card, at
-     the main path's shapes (32^3 particles, batch 4, K 14, window 2),
-     check the two autograd Functions' gradients, and time kernel and
-     plain version with CUDA events;
+  3. hold kernel A's two entries and kernels B-C against their plain
+     PyTorch versions on the card, at the main path's shapes (32^3
+     particles, batch 4, K 14, window 2): lattice_knn bit-equal at windows
+     2 and 3 on the main path's positions and on the undisplaced grid;
+     topk_min bit-equal; the gather bit-equal; the segment sum over the
+     card's graph plan bit-equal to the CPU plain version at widths 1, 3,
+     16, 32 and 64 in f32 and bf16, and identical across two launches; the
+     two autograd Functions' gradients bit-equal to the CPU's; time kernel,
+     plain version and the one PyTorch call for the same function (torch.
+     topk, index_select, index_add_) with CUDA events, and compute each
+     kernel's bound from its shapes;
   4. drive the main path through its entry points: Dataset (16 synthetic
      32^3 cubes), Trainer with the coverage guard, 5 bf16 fit steps and
-     evaluate on the test split, counting kernel launches; then time the
-     train step and read the peak device memory;
+     evaluate on the test split, counting kernel launches; then one train
+     step alone, which must launch lattice_knn once, the segment sum 11
+     times and topk_min never; then time the train step and read the peak
+     device memory;
   5. one f32 forward + loss of the same params and cube on the card and on
      the CPU (plain versions) must agree to rtol 1e-4;
   6. hold kernels D-G against their plain versions at the 64^3 index
      route's shapes (cores (4,8,8) and (8,8,8)) and the 32^3 block route's,
      for every width the layers give them, D/E in bf16 and F/G in f32 and
      bf16 with fast on and off; check both autograd pairs against the CPU;
-     time kernel and plain version;
+     time kernel, plain version and library call; lattice_knn bit-equal
+     to its plain version at 64^3 b1;
   7. the 64^3 shiftinv_vel path through its entry points: Dataset with
      velocities (6 synthetic 64^3 cubes), Trainer with the coverage guard
      (the host k-d tree search), 4 bf16 fit steps at batch 1 on
@@ -47,8 +57,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      at the scripts/bench_fused.py shapes in bf16 and at small shapes in
      f32 and bf16, through its tensor-core and CUDA-core forms; time
      kernel and plain version.
-The line before the last is {"kernels": [...]}, all ten kernels; the last
-line is {"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}, all eleven kernels with
+their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
+tensor cores); the last line is {"ok": true, "device": {...}}.
 """
 
 import dataclasses
@@ -64,6 +75,14 @@ import torch
 
 CELLS, BATCH, K, WINDOW = 32, 4, 14, 2
 WIDTHS = (3, 16, 32, 64)          # the layer widths the gather/scatter see
+SEG_WIDTHS = (1,) + WIDTHS        # and the segment sum's, counts included
+# launches of one main-path train step: the graph build, and the segment
+# sum's 6 forward scatter-means + 5 gradients of the gathers
+STEP_LAUNCHES = {"lattice_knn": 1, "topk_min": 0, "neighbor_segment_sum": 11}
+# H100 SXM published peaks (NVIDIA data sheet), the bounds' denominators
+H100_BYTES_PER_S = 3.35e12
+H100_FP32_OPS = 67e12
+H100_BF16_TC_OPS = 989e12
 CELLS64 = 64
 # widths the block-selection kernels see on shiftinv_vel: counts, the
 # payload gather (disp + vel), and the channels 9-32-64-64-32-16-6
@@ -76,11 +95,13 @@ MASK_SRC = "nbody_tpu_torch/csrc/mask_kernels.cu"
 MASK_WIDTHS = (1, 3, 16, 32, 64)
 MASK_CORE = (4, 8, 8)
 REPO_KERNELS = {
+    "lattice_knn": ("nbody_tpu_torch/csrc/topk_kernels.cu",
+                    "nbody_tpu/ops/pallas/topk_kernels.py:46"),
     "topk_min": ("nbody_tpu_torch/csrc/topk_kernels.cu",
                  "nbody_tpu/ops/pallas/topk_kernels.py:46"),
     "neighbor_gather": ("nbody_tpu_torch/csrc/banded_kernels.cu",
                         "nbody_tpu/ops/pallas/banded_kernels.py:113"),
-    "neighbor_scatter_add": ("nbody_tpu_torch/csrc/banded_kernels.cu",
+    "neighbor_segment_sum": ("nbody_tpu_torch/csrc/banded_kernels.cu",
                              "nbody_tpu/ops/pallas/banded_kernels.py:170"),
     "idx_dot_gather": (BLOCK_SRC, "nbody_tpu/ops/pallas/idx_kernels.py:169"),
     "idx_dot_scatter": (BLOCK_SRC, "nbody_tpu/ops/pallas/idx_kernels.py:179"),
@@ -125,24 +146,64 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def check_kernels(dev, idx, d2_lattice):
-    """Kernel vs plain at main-path shapes.  Returns per-kernel records."""
-    from nbody_tpu_torch.ops import banded
-    from nbody_tpu_torch.ops.kernels import banded_kernels as B
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops=0.0, ops_rate=H100_FP32_OPS):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that moves n_bytes (each input read once, each output written once)
+    and does `ops` operations at `ops_rate` per second."""
+    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def set_bound(rec, n_bytes, ops=0.0, ops_rate=H100_FP32_OPS):
+    rec["bound_ms"], rec["bound_by"] = bound(n_bytes, ops, ops_rate)
+
+
+def check_knn_kernels(dev, pos_norm):
+    """Kernel A's two entries against their plain versions on the card:
+    lattice_knn bit-equal at 32^3 b4 windows 2 and 3 on the main path's
+    positions and on the undisplaced (tie-heavy) grid, k = 32 too;
+    topk_min bit-equal on lattice, random, tied and inf/NaN rows.  Times,
+    bounds and library times.  Returns per-kernel records."""
+    from nbody_tpu_torch.data.grid import grid_positions
     from nbody_tpu_torch.ops.kernels import topk_kernels as T
 
     g = torch.Generator(device=dev).manual_seed(0)
-    rec = {name: {"max_abs_err": 0.0}
-           for name in ("topk_min", "neighbor_gather", "neighbor_scatter_add")}
+    rec = {name: {"max_abs_err": 0.0, "library_ms": None}
+           for name in ("lattice_knn", "topk_min")}
+    b, n, _ = pos_norm.shape
+    grid = grid_positions(CELLS, box=1.0, device=dev).expand(b, n, 3).contiguous()
+    for label, pos in (("main-path positions", pos_norm), ("undisplaced grid", grid)):
+        for w, k in ((WINDOW, K), (3, K), (3, 32)):
+            got, want = T.lattice_knn(pos, k, CELLS, w), T.lattice_knn_plain(pos, k, CELLS, w)
+            bad = int((got != want).any(dim=-1).sum())
+            rec["lattice_knn"]["max_abs_err"] = max(
+                rec["lattice_knn"]["max_abs_err"], float((got - want).abs().max()))
+            print(f"kernel A lattice_knn {label} ({b}, {n}) window {w} k={k}: "
+                  f"{bad} rows differ")
+            check(bad == 0, f"lattice_knn {label} w={w} k={k} differs from the "
+                            "plain version")
+    r = rec["lattice_knn"]
+    r["ms"] = cuda_ms(lambda: T.lattice_knn(pos_norm, K, CELLS, WINDOW))
+    r["plain_ms"] = cuda_ms(lambda: T.lattice_knn_plain(pos_norm, K, CELLS, WINDOW),
+                            iters=5)
+    m = (2 * WINDOW + 1) ** 3
+    # positions in, ids out; ~20 FP32 operations per candidate (3 x (sub,
+    # div, rint, mul, sub, mul) + 2 adds)
+    set_bound(r, nbytes(pos_norm) + b * n * K * 4, 20.0 * b * n * m)
 
-    # kernel A: bit-equal slots on lattice, random, tied and inf/NaN rows
-    rows, m = d2_lattice.shape
+    d2 = T.lattice_sq_dist(pos_norm, CELLS, window=WINDOW).reshape(b * n, m)
+    rows = d2.shape[0]
     d_rand = torch.rand((rows, m), generator=g, device=dev)
     d_bad = d_rand.clone()
     d_bad[torch.rand((rows, m), generator=g, device=dev) < 0.2] = float("inf")
     d_bad[torch.rand((rows, m), generator=g, device=dev) < 0.2] = float("nan")
     d_bad[:64] = float("inf")
-    for label, d in (("lattice", d2_lattice), ("random", d_rand),
+    for label, d in (("lattice", d2), ("random", d_rand),
                      ("ties", torch.floor(d_rand * 8.0)), ("inf/nan", d_bad)):
         got, want = T.topk_min(d, K), T.topk_min_plain(d, K)
         bad = int((got != want).any(dim=1).sum())
@@ -155,69 +216,111 @@ def check_kernels(dev, idx, d2_lattice):
     check(torch.equal(T.topk_min(d_rand, 32), T.topk_min_plain(d_rand, 32)),
           "topk_min k=32 differs from the plain version")
     print("kernel A topk_min random k=32: bit-equal")
-    rec["topk_min"]["ms"] = cuda_ms(lambda: T.topk_min(d2_lattice, K))
-    rec["topk_min"]["plain_ms"] = cuda_ms(lambda: T.topk_min_plain(d2_lattice, K))
+    r = rec["topk_min"]
+    r["ms"] = cuda_ms(lambda: T.topk_min(d2, K))
+    r["plain_ms"] = cuda_ms(lambda: T.topk_min_plain(d2, K))
+    r["library_ms"] = cuda_ms(lambda: torch.topk(d2, K, largest=False, sorted=True))
+    set_bound(r, nbytes(d2) + rows * K * 4, float(rows * m))
+    for name, r in rec.items():
+        print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; 32^3 b4 w{WINDOW} k{K})")
+    return rec
 
-    # kernels B and C at every main-path width, f32 and bf16
+
+def check_kernels(dev, idx):
+    """Kernels B and C against their plain versions at the main path's
+    shapes (32^3 b4 K14): the gather bit-equal, the segment sum over the
+    card's graph plan bit-equal to the CPU plain version at every width in
+    f32 and bf16 and identical across two launches; both autograd
+    Functions against the CPU; times, bounds and library times.  Returns
+    per-kernel records."""
+    from nbody_tpu_torch.ops import banded
+    from nbody_tpu_torch.ops.kernels import banded_kernels as B
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    rec = {name: {"max_abs_err": 0.0}
+           for name in ("neighbor_gather", "neighbor_segment_sum")}
     b, n, k = idx.shape
-    for c in WIDTHS:
+    idx_cpu = idx.cpu()
+    plan = B.graph_plan(idx)
+    plan_cpu = B.graph_plan(idx_cpu)
+    check(all(torch.equal(a.cpu(), c) for a, c in zip(plan, plan_cpu)),
+          "the card's graph plan differs from the CPU's")
+    degree = plan_cpu.in_degree(b, n)
+    print(f"graph plan: {plan.order.numel()} edges, in-degree min "
+          f"{int(degree.min())} mean {float(degree.mean()):.2f} max "
+          f"{int(degree.max())}; equal to the CPU's")
+    for c in SEG_WIDTHS:
         for dt in (torch.float32, torch.bfloat16):
-            v = torch.randn((b, n, c), generator=g, device=dev).to(dt)
-            got, want = B.neighbor_gather(v, idx), B.gather_plain(v, idx)
-            rec["neighbor_gather"]["max_abs_err"] = max(
-                rec["neighbor_gather"]["max_abs_err"],
-                float((got.float() - want.float()).abs().max()))
-            check(torch.equal(got, want),
-                  f"neighbor_gather C={c} {dt} is not bit-equal")
             e = torch.randn((b, n, k, c), generator=g, device=dev).to(dt)
-            got = B.neighbor_scatter_add(e, idx).float()
-            want = B.scatter_add_plain(e.float(), idx)      # f32 accumulation
-            absum = B.scatter_add_plain(e.float().abs(), idx)
-            err = (got - want).abs()
-            # f32: rtol 1e-5 of the summed |terms| (atomic order varies);
-            # bf16: one bf16 ulp of the f32-accumulated sum, plus that slack
-            tol = 1e-5 * absum + (bf16_ulp(want) if dt == torch.bfloat16 else 0)
-            worst = float((err - tol).max())
-            rec["neighbor_scatter_add"]["max_abs_err"] = max(
-                rec["neighbor_scatter_add"]["max_abs_err"], float(err.max()))
-            print(f"kernels B/C C={c:>2} {str(dt):>14}: gather bit-equal, "
-                  f"scatter max|err| {float(err.max()):.3e} "
-                  f"(worst err - tol {worst:.3e})")
-            check(worst <= 0, f"neighbor_scatter_add C={c} {dt} out of tolerance")
+            got = B.neighbor_segment_sum(e, plan)
+            again = B.neighbor_segment_sum(e, plan)
+            want = B.scatter_add_plain(e.cpu(), idx_cpu)
+            err = float((got.cpu().float() - want.float()).abs().max())
+            rec["neighbor_segment_sum"]["max_abs_err"] = max(
+                rec["neighbor_segment_sum"]["max_abs_err"], err)
+            equal = torch.equal(got.cpu(), want)
+            print(f"kernel C segment sum C={c:>2} {str(dt):>14}: bit-equal to the "
+                  f"CPU plain version {equal} (max|err| {err:.3e}); two launches "
+                  f"identical {torch.equal(got, again)}")
+            check(equal and got.dtype == dt, f"neighbor_segment_sum C={c} {dt} "
+                                             "is not bit-equal to the CPU")
+            check(torch.equal(got, again), f"neighbor_segment_sum C={c} {dt} "
+                                           "differs between two launches")
+            if c in WIDTHS:
+                v = torch.randn((b, n, c), generator=g, device=dev).to(dt)
+                got, want = B.neighbor_gather(v, idx), B.gather_plain(v, idx)
+                rec["neighbor_gather"]["max_abs_err"] = max(
+                    rec["neighbor_gather"]["max_abs_err"],
+                    float((got.float() - want.float()).abs().max()))
+                check(torch.equal(got, want),
+                      f"neighbor_gather C={c} {dt} is not bit-equal")
+    print(f"kernel B gather C in {WIDTHS}, f32 and bf16: bit-equal")
 
-    # the autograd Functions: each gradient is the other kernel; the card's
-    # gradients against the CPU's plain versions
+    # the autograd Functions: each gradient is the other kernel (the
+    # gather's over the plan); the card's gradients against the CPU's
     c = 16
     v = torch.randn((b, n, c), generator=g, device=dev, requires_grad=True)
     ct = torch.randn((b, n, k, c), generator=g, device=dev)
-    (gv,) = torch.autograd.grad(banded.neighbor_gather(v, idx), v, ct)
+    (gv,) = torch.autograd.grad(banded.neighbor_gather(v, idx, plan=plan), v, ct)
     vc = v.detach().cpu().requires_grad_()
-    (gvc,) = torch.autograd.grad(banded.neighbor_gather(vc, idx.cpu()), vc,
-                                 ct.cpu())
-    absum = B.scatter_add_plain(ct.abs().cpu(), idx.cpu())
-    gerr = float(((gv.cpu() - gvc).abs() - 1e-5 * absum).max())
+    (gvc,) = torch.autograd.grad(banded.neighbor_gather(vc, idx_cpu), vc, ct.cpu())
     e = torch.randn((b, n, k, c), generator=g, device=dev, requires_grad=True)
     ct2 = torch.randn((b, n, c), generator=g, device=dev)
-    (ge,) = torch.autograd.grad(banded.neighbor_scatter_add(e, idx), e, ct2)
+    (ge,) = torch.autograd.grad(banded.neighbor_scatter_add(e, idx, plan=plan), e, ct2)
     ec = e.detach().cpu().requires_grad_()
-    (gec,) = torch.autograd.grad(banded.neighbor_scatter_add(ec, idx.cpu()),
+    (gec,) = torch.autograd.grad(banded.neighbor_scatter_add(ec, idx_cpu),
                                  ec, ct2.cpu())
-    print(f"autograd: gather grad (scatter kernel) worst err - tol {gerr:.3e}; "
-          f"scatter grad (gather kernel) bit-equal {torch.equal(ge.cpu(), gec)}")
-    check(gerr <= 0 and torch.equal(ge.cpu(), gec), "gradients disagree")
+    print(f"autograd: gather grad (kernel C) bit-equal {torch.equal(gv.cpu(), gvc)}; "
+          f"scatter grad (kernel B) bit-equal {torch.equal(ge.cpu(), gec)}")
+    check(torch.equal(gv.cpu(), gvc) and torch.equal(ge.cpu(), gec),
+          "gradients disagree")
 
     c = 64
     v = torch.randn((b, n, c), generator=g, device=dev).to(torch.bfloat16)
     e = torch.randn((b, n, k, c), generator=g, device=dev).to(torch.bfloat16)
-    rec["neighbor_gather"]["ms"] = cuda_ms(lambda: B.neighbor_gather(v, idx))
-    rec["neighbor_gather"]["plain_ms"] = cuda_ms(lambda: B.gather_plain(v, idx))
-    rec["neighbor_scatter_add"]["ms"] = cuda_ms(
-        lambda: B.neighbor_scatter_add(e, idx))
-    rec["neighbor_scatter_add"]["plain_ms"] = cuda_ms(
-        lambda: B.scatter_add_plain(e, idx))
+    ids = B._flat_targets(idx, n)
+    r = rec["neighbor_gather"]
+    r["ms"] = cuda_ms(lambda: B.neighbor_gather(v, idx))
+    r["plain_ms"] = cuda_ms(lambda: B.gather_plain(v, idx))
+    vflat = v.reshape(b * n, c)
+    r["library_ms"] = cuda_ms(lambda: vflat.index_select(0, ids))
+    set_bound(r, nbytes(v, idx, e))          # out is e's size
+    r = rec["neighbor_segment_sum"]
+    out = B.neighbor_segment_sum(e, plan)
+    r["ms"] = cuda_ms(lambda: B.neighbor_segment_sum(e, plan))
+    r["plain_ms"] = cuda_ms(lambda: B.segment_sum_plain(e, plan))
+    ef = e.float().reshape(-1, c)
+    acc = torch.zeros((b * n, c), device=dev)
+    r["library_ms"] = cuda_ms(lambda: acc.index_add_(0, ids, ef))
+    set_bound(r, nbytes(e, plan.order, plan.offsets, out), float(e.numel()))
+    plan_ms = cuda_ms(lambda: B.graph_plan(idx))
     for name, r in rec.items():
-        print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms"
-              + ("" if name == "topk_min" else f" (C={c} bf16)"))
+        print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; C={c} bf16)")
+    print(f"time graph_plan (stable sort + search, plain torch): {plan_ms:.4f} ms")
     return rec
 
 
@@ -337,30 +440,53 @@ def check_select_kernels(dev, idx64, idx32):
           "block pair gradients disagree")
 
     # times at the widest layer width: D/E at the default core, F/G with
-    # the block route's own setting (bf16, fast)
+    # the block route's own setting (bf16, fast); beside each, one
+    # index_select / index_add_ on precomputed int64 ids (a position
+    # outside the patch reads row 0, or lands in a sink row) and the bound
     c = 64
     pos, p = pos_by_core[INDEX_CORES[0]]
     _, nb, et = pos.shape
     pat, ev = randn((1, nb, p, c), bf), randn((1, nb, et, c), bf)
-    times = {
-        "idx_dot_gather": (lambda: IK.dot_gather(pos, pat),
-                           lambda: IK.dot_gather_plain(pos, pat)),
-        "idx_dot_scatter": (lambda: IK.dot_scatter(pos, ev, p),
-                            lambda: IK.dot_scatter_plain(pos, ev, p)),
-    }
     pat32 = randn((b, p32.shape[1], pp32, c), bf)
     ev32 = randn((b, p32.shape[1], p32.shape[2], c), bf)
-    times["block_gather"] = (lambda: BK.block_gather(p32, pat32, True),
-                             lambda: BK.block_gather_plain(p32, pat32, True))
-    times["block_scatter"] = (lambda: BK.block_scatter(p32, ev32, pp32, True),
-                              lambda: BK.block_scatter_plain(p32, ev32, pp32, True))
-    for name, (kern, plain) in times.items():
-        rec[name]["ms"] = cuda_ms(kern)
-        rec[name]["plain_ms"] = cuda_ms(plain)
+    cases = {
+        "idx_dot_gather": (pos, pat, lambda: IK.dot_gather(pos, pat),
+                           lambda: IK.dot_gather_plain(pos, pat)),
+        "idx_dot_scatter": (pos, ev, lambda: IK.dot_scatter(pos, ev, p),
+                            lambda: IK.dot_scatter_plain(pos, ev, p)),
+        "block_gather": (p32, pat32, lambda: BK.block_gather(p32, pat32, True),
+                         lambda: BK.block_gather_plain(p32, pat32, True)),
+        "block_scatter": (p32, ev32, lambda: BK.block_scatter(p32, ev32, pp32, True),
+                          lambda: BK.block_scatter_plain(p32, ev32, pp32, True)),
+    }
+    for name, (sel, x, kern, plain) in cases.items():
+        r = rec[name]
+        psize = x.shape[2] if name.endswith("gather") else (
+            p if name.startswith("idx") else pp32)
+        blocks = sel.shape[0] * sel.shape[1]
+        blk = torch.arange(blocks, device=dev).reshape(sel.shape[:2] + (1,))
+        valid = (sel >= 0) & (sel < psize)
+        out = kern()
+        r["ms"], r["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
+        if name.endswith("gather"):
+            ids = torch.where(valid, blk * psize + sel, 0).reshape(-1)
+            flat = x.reshape(-1, c)
+            r["library_ms"] = cuda_ms(lambda: flat.index_select(0, ids))
+            set_bound(r, nbytes(sel, x, out))
+        else:
+            ids = torch.where(valid, blk * (psize + 1) + sel,
+                              blk * (psize + 1) + psize).reshape(-1)
+            vf = x.float().reshape(-1, c)
+            acc = torch.zeros((blocks * (psize + 1), c), device=dev)
+            r["library_ms"] = cuda_ms(lambda: acc.index_add_(0, ids, vf))
+            n_valid = int(valid.sum())
+            set_bound(r, nbytes(sel, out) + n_valid * c * x.element_size(),
+                      float(n_valid * c))
         where = (f"64^3 core {INDEX_CORES[0]}" if name.startswith("idx")
                  else "32^3 b4 core (4, 4, 8)")
-        print(f"time {name}: kernel {rec[name]['ms']:.4f} ms, plain "
-              f"{rec[name]['plain_ms']:.4f} ms ({where}, C={c} bf16)")
+        print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}; {where}, C={c} bf16)")
     return rec
 
 
@@ -454,11 +580,23 @@ def check_mask_kernels(dev, idx):
                                       lambda: MK.mask_dot_scatter_plain(m, ev))}
         for name, (kern, plain) in times.items():
             ms, plain_ms = cuda_ms(kern, iters=10), cuda_ms(plain, iters=5)
+            # the mask, the operand and the f32 output; a dense product of
+            # every mask entry on the bf16 tensor cores; no one PyTorch call
+            ms_bound, by = bound(
+                nbytes(m, pat if name == "mask_dot_gather" else ev, kern()),
+                2.0 * b * nb * et * MK.patch_width(m) * c, H100_BF16_TC_OPS)
             if mdt == "int8":
-                rec[name].update(ms=ms, plain_ms=plain_ms)
+                rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                 bound_ms=ms_bound, bound_by=by)
             print(f"time {name} {mdt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms (32^3 b4 core {MASK_CORE}, {tuple(m.shape)}, C={c} bf16)")
+                  f"ms, bound {ms_bound:.4f} ms ({by}; 32^3 b4 core {MASK_CORE}, "
+                  f"{tuple(m.shape)}, C={c} bf16)")
     return rec
+
+
+def pos_norm(x_in, box):
+    """The model's kNN input: grid + ZA positions on the unit torus."""
+    return torch.remainder((x_in[..., :3] + box / 2.0 + x_in[..., 3:6]) / box, 1.0)
 
 
 def reset_counts(*modules):
@@ -533,7 +671,7 @@ def run_vel64(dev, ds, trainer, counted):
           and rec.get("core") == [4, 8, 8], f"64^3 route is {rec}")
     check(counts["idx_dot_gather"] > 0 and counts["idx_dot_scatter"] > 0,
           "kernels D/E did not run on the 64^3 path")
-    check(counts["neighbor_gather"] == 0 and counts["neighbor_scatter_add"] == 0,
+    check(counts["neighbor_gather"] == 0 and counts["neighbor_segment_sum"] == 0,
           "kernels B/C ran on the 64^3 index path")
     n_test = ds.X_test.shape[0]
     check(preds.shape == (2, n_test, CELLS64 ** 3, 6) and np.isfinite(preds).all(),
@@ -626,7 +764,7 @@ def run_int_route(dev, C, dataset, counted):
         check(counts["mask_dot_gather"] > 0 and counts["mask_dot_scatter"] > 0,
               f"kernels H/I did not run on the {mdt} route")
         check(all(counts[n] == 0 for n in
-                  ("neighbor_gather", "neighbor_scatter_add", "idx_dot_gather",
+                  ("neighbor_gather", "neighbor_segment_sum", "idx_dot_gather",
                    "idx_dot_scatter", "block_gather", "block_scatter")),
               f"a kernel of B-G ran on the {mdt} route")
         step_time(trainer, x, y, 5, f"32^3 b4 K14 w2 bf16 shiftinv, --mask_dtype "
@@ -692,8 +830,19 @@ def check_fused(dev, idx):
                         warmup=1)
     rec["plain_ms"] = cuda_ms(lambda: FK.boundary_reference(masks, *args),
                               iters=3, warmup=1)
+    # masks, patches, a_edge, W1, W2 in; act, h1, s out; the two mask
+    # products and the two weight products on the bf16 tensor cores; no
+    # one PyTorch call
+    b, nb, et, p = masks.shape
+    c = args[0].shape[-1]
+    q = args[2].shape[-1]
+    rec["library_ms"] = None
+    set_bound(rec, nbytes(masks, *args, *FK.fused_boundary_dot(masks, *args)),
+              2.0 * b * nb * (et * p * c + 2 * et * c * q + et * p * q),
+              H100_BF16_TC_OPS)
     print(f"time fused_boundary_dot: kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms (bench_fused shapes {tuple(masks.shape)}, "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}; bench_fused shapes {tuple(masks.shape)}, "
           "C=q=32 bf16)")
     return rec, launches
 
@@ -744,7 +893,6 @@ def main() -> int:
     from nbody_tpu_torch.ops.kernels import (banded_kernels, block_kernels, build,
                                              idx_kernels, mask_kernels,
                                              topk_kernels)
-    from nbody_tpu_torch.ops.knn import lattice_sq_dist
     from nbody_tpu_torch.physics.losses import loss_za
     from nbody_tpu_torch.train.trainer import Trainer
 
@@ -789,13 +937,11 @@ def main() -> int:
     trainer = Trainer(cfg, dev, dataset=dataset)
     x0, _ = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
     idx0 = trainer.model.knn_fn(x0)
-    pos0 = x0[..., :3] + trainer.box / 2.0 + x0[..., 3:6]
-    d2 = lattice_sq_dist(torch.remainder(pos0 / trainer.box, 1.0), CELLS,
-                         window=WINDOW)
     torch.cuda.synchronize()
 
     # 3. kernels vs plain versions
-    rec = check_kernels(dev, idx0, d2.reshape(-1, d2.shape[-1]).contiguous())
+    rec = check_knn_kernels(dev, pos_norm(x0, trainer.box))
+    rec.update(check_kernels(dev, idx0))
 
     # 4. the main path: coverage guard, fit, evaluate
     cov = trainer.check_graph_coverage(x0)
@@ -816,8 +962,9 @@ def main() -> int:
           f"included); losses {losses}")
     check(len(losses) == 5 and np.isfinite(losses).all(), "non-finite loss")
     check(all(counters[n] > 0 for n in
-              ("topk_min", "neighbor_gather", "neighbor_scatter_add")),
+              ("lattice_knn", "neighbor_gather", "neighbor_segment_sum")),
           "a kernel was not launched")
+    check(counters["topk_min"] == 0, "topk_min ran on the main path")
     check(preds.shape == (2, 4, CELLS ** 3, 3) and np.isfinite(preds).all(),
           f"evaluate cube {preds.shape} not finite / wrong shape")
     check(np.array_equal(preds[0], dataset.X_test[:4, :, 6:]),
@@ -826,6 +973,13 @@ def main() -> int:
     print(f"evaluate: cube {preds.shape}, errors {errors.tolist()}")
 
     x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
+    reset_counts(*counted)
+    trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    step = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    print(f"launches in one train step: {step}")
+    check(all(step.get(n, 0) == want for n, want in STEP_LAUNCHES.items()),
+          f"one train step launched {step}, expected {STEP_LAUNCHES}")
     step_time(trainer, x, y, 10, "32^3 b4 K14 w2 bf16")
     del trainer
 
@@ -850,8 +1004,14 @@ def main() -> int:
     ds64, trainer64 = make_vel64(dev, C)
     x64, _ = split_batch(torch.as_tensor(ds64.X_train[:1], device=dev), 9)
     idx64 = trainer64.model.knn_fn(x64)
+    want64 = topk_kernels.lattice_knn_plain(pos_norm(x64, trainer64.box), K,
+                                            CELLS64, WINDOW)
+    bad = int((idx64 != want64).any(dim=-1).sum())
+    print(f"kernel A lattice_knn 64^3 b1 window {WINDOW}: {bad} rows differ "
+          "from the plain version")
+    check(bad == 0, "lattice_knn differs from its plain version at 64^3")
     rec.update(check_select_kernels(dev, idx64, idx0))
-    del x64, idx64
+    del x64, idx64, want64
     # 7. the 64^3 shiftinv_vel index path
     counts64 = run_vel64(dev, ds64, trainer64, counted)
     del trainer64, ds64
@@ -876,8 +1036,9 @@ def main() -> int:
 
     kernels = [{"name": n, "route": "cuda", "source": REPO_KERNELS[n][0],
                 "replaces": REPO_KERNELS[n][1], "launches": counters[n],
-                "max_abs_err": rec[n]["max_abs_err"], "ms": rec[n]["ms"],
-                "plain_ms": rec[n]["plain_ms"]} for n in REPO_KERNELS]
+                **{key: rec[n][key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms")}} for n in REPO_KERNELS]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

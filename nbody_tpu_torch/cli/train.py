@@ -19,18 +19,11 @@ from __future__ import annotations
 import time
 
 import numpy as np
-import torch
 
 from nbody_tpu_torch import config as C
 from nbody_tpu_torch.data.dataset import make_dataset
+from nbody_tpu_torch.models.registry import resolve_device
 from nbody_tpu_torch.train.trainer import Trainer
-
-
-def resolve_device(platform: str) -> torch.device:
-    if platform == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--platform cuda: no CUDA device is available "
-                           "(use --platform cpu for the plain versions)")
-    return torch.device(platform)
 
 
 def print_evaluation_results(err: np.ndarray, label: str = "Test"):

@@ -202,8 +202,8 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["sort", "iter", "pallas"],
         help="Lattice kNN k-selection.  The three JAX choices return the "
              "same slots in the same order; the port runs every one of "
-             "them through its CUDA selection kernel (ops/kernels/"
-             "topk_kernels.py)")
+             "them through its fused CUDA lattice kNN kernel (ops/"
+             "kernels/topk_kernels.py)")
     adg("--knn_window", type=int, default=3, metavar="W",
         help="Lattice kNN search window in grid cells (the coverage guard "
              "verifies it)")

@@ -1,4 +1,5 @@
-// Kernels B and C: the neighbor gather and its transpose, the scatter-add.
+// Kernels B and C: the neighbor gather and its transpose, the scatter-add,
+// computed as a segment sum over a target-sorted edge list.
 //
 // Kernel B replaces nbody_tpu/ops/pallas/banded_kernels.py :
 // banded_gather_pallas (_gather_kernel), kernel C replaces
@@ -6,7 +7,7 @@
 // matmuls built in VMEM, because XLA's dynamic gather was slow there; on the
 // H100 they are what they compute:
 //   gather:  out[b, n, k, :] = values[b, idx[b, n, k], :]
-//   scatter: acc[b, j, :]   += vals[b, n, k, :]   for every idx[b, n, k] == j
+//   scatter: out[b, j, :]   = sum of vals[b, n, k, :] over idx[b, n, k] == j
 // with the exact (band = None) semantics: the port's lattice kNN only yields
 // targets inside the band the Pallas kernels covered (ops/banded.py:37-46).
 // A target outside [0, N) reads 0 in the gather and is dropped by the
@@ -15,22 +16,37 @@
 //
 // What bounds them on the H100: memory, at well under 1 FLOP/byte.  The
 // gather moves B*N*K*C elements out and reads idx once; the scatter reads
-// the same and does one f32 atomic add per element into a B*N*C buffer.
-// At the main path's widths (32^3 particles, batch 4, K 14, C <= 64) the
-// source rows and the accumulator are at most 32 MB and stay in the 50 MB
-// L2, so device memory sees mostly the streamed (B, N, K, C) side.
-// Design: one thread per output unit, consecutive threads on consecutive
-// addresses of the streamed side, so every warp's loads and stores of it
-// are coalesced.  The gather copies each row in the widest unit (16, 8, 4
-// or 2 bytes) its byte length and alignment allow -- an exact bit copy in
-// any dtype, with no rounding of f32 input.  The scatter converts bf16 to
-// f32 exactly and accumulates in f32, as the Pallas kernel did.
+// the same B*N*K*C elements, the plan's edge order and offsets, and writes
+// B*N*C.  At the main path's widths (32^3 particles, batch 4, K 14, C <= 64)
+// the (B, N, C) side is at most 32 MB and stays in the 50 MB L2, so device
+// memory sees mostly the streamed (B, N, K, C) side.
 //
-// Tolerance of the scatter: atomic adds land in an order that changes from
-// run to run, so f32 sums differ from a sequential sum by f32 rounding of
-// the reordered terms (relative error ~1e-7 of the sum of |terms| per
-// target); after the cast to bf16 that is at most one bf16 ulp except where
-// a sum nearly cancels.  A deterministic CSR segment-sum is later work.
+// Gather design: one thread per output unit, consecutive threads on
+// consecutive addresses of the streamed side, so every warp's loads and
+// stores of it are coalesced.  Each row is copied in the widest unit (16,
+// 8, 4 or 2 bytes) its byte length and alignment allow -- an exact bit copy
+// in any dtype, with no rounding of f32 input.
+//
+// Scatter design (the segment sum): the caller's graph plan lists the flat
+// edge ids (b*N + n)*K + k sorted by target b*N + idx, ties by ascending
+// edge id (`order`), with each target's run delimited by `offsets` (B*N + 1
+// entries; edges of a target outside [0, N) lie past the last offset).
+// Each target row is owned by ceil(C / V) threads, one per V-element vector
+// of the row (16 bytes where the row length and alignment allow: 8 lanes
+// per row at C 64 bf16, 16 at C 64 f32; rows of 2 or 6 bytes at C 1 or 3
+// take one 2-byte element per thread, so every thread still owns work).
+// A thread walks its target's in-edges in plan order, four at a time so
+// that four row loads are in flight, and accumulates in f32 registers
+// (bf16 is widened exactly).  The in-degree is data-dependent (about 14
+// on average, up to ~40 on displaced cubes), so the loop is bounded by the
+// offsets.  The row is written once, rounded to bf16 in-kernel (round to
+// nearest even, as torch's cast) where the input is bf16: no memset, no
+// atomics, no cast pass.
+//
+// Exactness: each sum is taken in ascending edge order, the order in which
+// the plain version's index_add_ on the CPU adds (sequentially over the
+// index, like np.add.at), so the kernel is bit-equal to the CPU plain
+// version in f32 and in bf16, and deterministic from launch to launch.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -53,25 +69,70 @@ __global__ void gather_rows_kernel(const U* __restrict__ values,
   out[i] = v;
 }
 
+// V elements of T loaded or stored as one access
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 // bf16 bits -> f32: exact (bf16 is the top half of an f32)
 __device__ __forceinline__ float to_f32(uint16_t x) {
   return __uint_as_float((unsigned)x << 16);
 }
 
-template <typename T, typename I>
-__global__ void scatter_add_kernel(const T* __restrict__ vals,
-                                   const int32_t* __restrict__ idx,
-                                   float* __restrict__ acc, I n, I nk, I c,
+__device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
+// f32 -> bf16 bits, round to nearest even; NaN -> 0x7FC0 (torch's cast)
+__device__ __forceinline__ void from_f32(float x, uint16_t* out) {
+  const unsigned u = __float_as_uint(x);
+  *out = (x != x) ? (uint16_t)0x7FC0
+                  : (uint16_t)((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void accumulate(float (&acc)[V],
+                                           const Pack<T, V>& p) {
+#pragma unroll
+  for (int i = 0; i < V; ++i) acc[i] += to_f32(p.v[i]);
+}
+
+template <typename T, int V, typename I>
+__global__ void segment_sum_kernel(const T* __restrict__ vals,
+                                   const int32_t* __restrict__ order,
+                                   const int32_t* __restrict__ offsets,
+                                   T* __restrict__ out, I lanes, I c,
                                    I total) {
+  using P = Pack<T, V>;
   const I i = (I)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
-  const I e = i / c;
-  const I ch = i - e * c;
-  const I b = e / nk;
-  const int32_t j = __ldg(idx + e);
-  if (j < 0 || (I)j >= n) return;
-  atomicAdd(acc + (b * n + (I)j) * c + ch, to_f32(vals[i]));
+  const I row = i / lanes;             // target b*N + j
+  const I lane = i - row * lanes;      // vector within the row
+  const int beg = __ldg(offsets + row);
+  const int end = __ldg(offsets + row + 1);
+  const T* src = vals + lane * V;
+  float acc[V];
+#pragma unroll
+  for (int t = 0; t < V; ++t) acc[t] = 0.0f;
+  int e = beg;
+  for (; e + 4 <= end; e += 4) {
+    const I e0 = (I)__ldg(order + e), e1 = (I)__ldg(order + e + 1);
+    const I e2 = (I)__ldg(order + e + 2), e3 = (I)__ldg(order + e + 3);
+    const P p0 = *reinterpret_cast<const P*>(src + e0 * c);
+    const P p1 = *reinterpret_cast<const P*>(src + e1 * c);
+    const P p2 = *reinterpret_cast<const P*>(src + e2 * c);
+    const P p3 = *reinterpret_cast<const P*>(src + e3 * c);
+    accumulate(acc, p0);                 // in plan order: the sum's order
+    accumulate(acc, p1);
+    accumulate(acc, p2);
+    accumulate(acc, p3);
+  }
+  for (; e < end; ++e)
+    accumulate(acc, *reinterpret_cast<const P*>(
+                        src + (I)__ldg(order + e) * c));
+  P o;
+#pragma unroll
+  for (int t = 0; t < V; ++t) from_f32(acc[t], &o.v[t]);
+  *reinterpret_cast<P*>(out + row * c + lane * V) = o;
 }
 
 const int kThreads = 256;
@@ -96,23 +157,44 @@ cudaError_t launch_gather(const void* values, const int32_t* idx, void* out,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_scatter(const void* vals, const int32_t* idx, float* acc,
-                           long long b, long long n, long long k, long long c,
-                           cudaStream_t stream) {
-  const long long total = b * n * k * c;
+template <typename T, int V>
+cudaError_t launch_segment_sum(const void* vals, const int32_t* order,
+                               const int32_t* offsets, void* out,
+                               long long rows, long long edges, long long c,
+                               cudaStream_t stream) {
+  const long long lanes = c / V;
+  const long long total = rows * lanes;
   if (total == 0) return cudaSuccess;
   const long long blocks = (total + kThreads - 1) / kThreads;
-  if (total < (1LL << 31)) {
-    scatter_add_kernel<T, uint32_t><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        (const T*)vals, idx, acc, (uint32_t)n, (uint32_t)(n * k),
+  if (edges * c < (1LL << 31) && rows * c < (1LL << 31)) {
+    segment_sum_kernel<T, V, uint32_t><<<(unsigned)blocks, kThreads, 0,
+                                         stream>>>(
+        (const T*)vals, order, offsets, (T*)out, (uint32_t)lanes,
         (uint32_t)c, (uint32_t)total);
   } else {
-    scatter_add_kernel<T, uint64_t><<<(unsigned)blocks, kThreads, 0, stream>>>(
-        (const T*)vals, idx, acc, (uint64_t)n, (uint64_t)(n * k),
+    segment_sum_kernel<T, V, uint64_t><<<(unsigned)blocks, kThreads, 0,
+                                         stream>>>(
+        (const T*)vals, order, offsets, (T*)out, (uint64_t)lanes,
         (uint64_t)c, (uint64_t)total);
   }
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_segment_sum(int v, const void* vals,
+                                 const int32_t* order, const int32_t* offsets,
+                                 void* out, long long rows, long long edges,
+                                 long long c, cudaStream_t stream) {
+  switch (v) {
+    case 1: return launch_segment_sum<T, 1>(vals, order, offsets, out, rows, edges, c, stream);
+    case 2: return launch_segment_sum<T, 2>(vals, order, offsets, out, rows, edges, c, stream);
+    case 4: return launch_segment_sum<T, 4>(vals, order, offsets, out, rows, edges, c, stream);
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        return launch_segment_sum<T, 8>(vals, order, offsets, out, rows, edges, c, stream);
+      return cudaErrorInvalidValue;
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -137,17 +219,21 @@ extern "C" int neighbor_gather_rows(const void* values, const int32_t* idx,
   return (int)err;
 }
 
-// vals (b, n, k, c) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), idx (b, n, k)
-// int32; adds into acc (b, n, c) f32, which the caller zeroes.
-extern "C" int neighbor_scatter_add_f32acc(const void* vals,
-                                           const int32_t* idx, float* acc,
-                                           long long b, long long n,
-                                           long long k, long long c,
-                                           int is_bf16, int device,
-                                           cudaStream_t stream) {
+// vals (edges, c) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1) with edges =
+// b*n*k; order (edges,) int32 edge ids sorted by target; offsets (rows + 1,)
+// int32 with rows = b*n -> out (rows, c) in the input dtype, every row
+// written.  vec (elements per access, 1/2/4, or 8 for bf16) divides c and
+// the alignment of vals and out.  Returns cudaGetLastError().
+extern "C" int neighbor_segment_sum(const void* vals, const int32_t* order,
+                                    const int32_t* offsets, void* out,
+                                    long long rows, long long edges,
+                                    long long c, int vec, int is_bf16,
+                                    int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = is_bf16 ? launch_scatter<uint16_t>(vals, idx, acc, b, n, k, c, stream)
-                : launch_scatter<float>(vals, idx, acc, b, n, k, c, stream);
+  err = is_bf16 ? dispatch_segment_sum<uint16_t>(vec, vals, order, offsets,
+                                                 out, rows, edges, c, stream)
+                : dispatch_segment_sum<float>(vec, vals, order, offsets, out,
+                                              rows, edges, c, stream);
   return (int)err;
 }

@@ -112,14 +112,27 @@ def _make_masks(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
     return None, (cells, cfg.knn_window)
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device a model (and the CLI's --platform) runs on: the card
+    unless the caller names another; a card that is not there is
+    refused."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available (use the CPU -- "
+                           "device 'cpu', --platform cpu -- for the plain "
+                           "versions)")
+    return device
+
+
 class ShiftInvModel(nn.Module):
     """The shiftinv and shiftinv_vel families: lattice kNN + 4-op graph
     network.  ``forward`` is the JAX Model.apply (nn.Module.apply has
     another meaning); knn_fn, apply_with_idx and impl_record keep their JAX
-    names."""
+    names.  The parameters live on `device`, the card unless named."""
 
     def __init__(self, cfg: C.ModelConfig, box: float, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.cfg = cfg
         self.velocity = cfg.family == "shiftinv_vel"
         default, c_in = ((C.GRAPH_VEL_CHANNELS, 9) if self.velocity

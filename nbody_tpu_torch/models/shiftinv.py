@@ -31,8 +31,8 @@ from nbody_tpu_torch import config as C
 from nbody_tpu_torch.models.base import (LayerParams, ShiftInvVelParams,
                                          init_network_params)
 from nbody_tpu_torch.ops import blocked
-from nbody_tpu_torch.ops.banded import (neighbor_counts, neighbor_gather,
-                                        neighbor_segment_mean)
+from nbody_tpu_torch.ops.banded import (graph_plan, is_direct, neighbor_counts,
+                                        neighbor_gather, neighbor_segment_mean)
 from nbody_tpu_torch.ops.graph_features import (edge_features_with_nodes,
                                                 edge_features_za)
 
@@ -56,10 +56,11 @@ def shift_inv_layer(h: torch.Tensor, idx: torch.Tensor,
                     layer_params: Dict[str, torch.Tensor],
                     is_last: bool = False,
                     counts: Optional[torch.Tensor] = None,
-                    lattice=None, masks=None) -> torch.Tensor:
+                    lattice=None, masks=None, plan=None) -> torch.Tensor:
     """One 4-op layer (shiftinv.py:45-105).  h (b, N, K, C) edges, idx
-    (b, N, K).  counts: in-degrees shared by every layer.  Returns
-    (b, N, K, q), or (b, N, q) if is_last."""
+    (b, N, K).  counts: in-degrees shared by every layer; plan: the
+    direct route's GraphPlan, likewise shared.  Returns (b, N, K, q), or
+    (b, N, q) if is_last."""
     w = layer_params["W"]          # (4, C, q)
     bias = layer_params["B"][0]    # (q,)
     c_in, q = w.shape[1], w.shape[2]
@@ -68,13 +69,15 @@ def shift_inv_layer(h: torch.Tensor, idx: torch.Tensor,
         # [W1|W2]; the scatter and gather then run at width q
         h12 = torch.matmul(h, torch.cat([w[0], w[1]], dim=1))
         h1, hw = h12[..., :q], h12[..., q:]
-        pooled_rows = neighbor_segment_mean(hw, idx, counts, lattice, masks)
-        h2 = neighbor_gather(pooled_rows, idx, lattice, masks)  # (b, N, K, q)
+        pooled_rows = neighbor_segment_mean(hw, idx, counts, lattice, masks,
+                                            plan)
+        h2 = neighbor_gather(pooled_rows, idx, lattice, masks, plan)  # (b, N, K, q)
     else:
         h1 = torch.matmul(h, w[0])
-        pooled_rows = neighbor_segment_mean(h, idx, counts, lattice, masks)
-        h2 = torch.matmul(neighbor_gather(pooled_rows, idx, lattice, masks),
-                          w[1])
+        pooled_rows = neighbor_segment_mean(h, idx, counts, lattice, masks,
+                                            plan)
+        h2 = torch.matmul(neighbor_gather(pooled_rows, idx, lattice, masks,
+                                          plan), w[1])
 
     # op 3: pool cols == mean over K, broadcast over K
     pooled_cols = torch.mean(h, dim=2)                          # (b, N, C)
@@ -92,14 +95,19 @@ def shift_inv_layer(h: torch.Tensor, idx: torch.Tensor,
 def shiftinv_network(params: List[Dict[str, torch.Tensor]], edges: torch.Tensor,
                      idx: torch.Tensor, activation: Callable = torch.relu,
                      lattice=None, masks=None) -> torch.Tensor:
-    """Layer stack (reference network_func_shift_inv_za, graph.py:463-476);
-    in-degree counts in the edge dtype, computed once for all layers."""
+    """Layer stack (reference network_func_shift_inv_za, graph.py:463-476).
+    On the direct route the graph plan (idx sorted by target) is built once
+    here and serves every layer's scatters, forward and backward; the
+    in-degree counts, in the edge dtype, are read off it (other routes
+    scatter ones), once for all layers."""
     h = edges
-    counts = neighbor_counts(idx, edges.dtype, lattice, masks)
+    plan = graph_plan(idx) if is_direct(idx.shape[1], lattice, masks) else None
+    counts = neighbor_counts(idx, edges.dtype, lattice, masks, plan)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
         h = shift_inv_layer(h, idx, layer_params, is_last=is_last,
-                            counts=counts, lattice=lattice, masks=masks)
+                            counts=counts, lattice=lattice, masks=masks,
+                            plan=plan)
         if not is_last:
             h = activation(h)
     return h

@@ -1,9 +1,9 @@
 """Periodic k-nearest-neighbor search (port of nbody_tpu/ops/knn.py).
 
-``knn_periodic_lattice_batch`` is the main path's in-step graph build: the
-(2w+1)^3 lattice rolls of the position cube are scored with the same
-expression tree as the JAX package (so near-ties break the same way) and
-the k nearest are selected by kernel A (ops/kernels/topk_kernels.py).
+``knn_periodic_lattice_batch`` is the main path's in-step graph build:
+kernel A's lattice_knn (ops/kernels/topk_kernels.py) scores the (2w+1)^3
+lattice candidates with the same expression tree as the JAX package (so
+near-ties break the same way) and keeps the k nearest.
 ``knn_periodic`` is the exact O(N^2) search, plain PyTorch; it is only the
 coverage oracle.
 
@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from nbody_tpu_torch.data.grid import grid_positions
-from nbody_tpu_torch.ops.kernels.topk_kernels import topk_min
+from nbody_tpu_torch.ops.kernels.topk_kernels import lattice_knn
 from nbody_tpu_torch.physics.pbc import min_image_diff
 
 
@@ -56,65 +56,20 @@ def knn_periodic_batch(pos: torch.Tensor, k: int, box: float = 1.0,
     return torch.stack([knn_periodic(p, k, box, row_chunk) for p in pos])
 
 
-def _lattice_window(cells: int, window: int):
-    """Clamped half-width w and the lexicographic (dx, dy, dz) roll list."""
-    w = min(window, (cells - 1) // 2)
-    offs = [(dx, dy, dz)
-            for dx in range(-w, w + 1)
-            for dy in range(-w, w + 1)
-            for dz in range(-w, w + 1)]
-    return w, offs
-
-
-@torch.no_grad()
-def lattice_sq_dist(pos: torch.Tensor, cells: int, box: float = 1.0,
-                    window: int = 3) -> torch.Tensor:
-    """Squared min-image distances to the (2w+1)^3 lattice candidates:
-    pos (b, N, 3) grid-ordered -> d2 (b, N, M), the self slot set to -1."""
-    b, n, _ = pos.shape
-    if cells ** 3 != n:
-        raise ValueError(f"pos must be a cells^3 cube in grid order "
-                         f"(cells={cells}, N={n})")
-    _, offs = _lattice_window(cells, window)
-    grid = pos.reshape(b, cells, cells, cells, 3)
-    cands = torch.stack(
-        [torch.roll(grid, (-dx, -dy, -dz), dims=(1, 2, 3)).reshape(b, n, 3)
-         for (dx, dy, dz) in offs], dim=2)           # (b, N, M, 3)
-    delta = min_image_diff(cands, pos[:, :, None, :], box)
-    sq = delta * delta
-    # XLA's left-to-right xyz sum, written out so that no backend's
-    # reduction may reassociate it (near-ties must break the same way)
-    d2 = sq[..., 0] + sq[..., 1] + sq[..., 2]         # (b, N, M)
-    d2[:, :, offs.index((0, 0, 0))] = -1.0
-    return d2
-
-
-@torch.no_grad()
 def knn_periodic_lattice_batch(pos: torch.Tensor, k: int, cells: int,
                                box: float = 1.0, window: int = 3) -> torch.Tensor:
     """Cell-list kNN for grid-ordered cubes: pos (b, N, 3) -> (b, N, k) int32.
 
     Particle n originates at lattice site unflatten(n); its candidates are
-    the (2w+1)^3 rolls of the position cube, exact while every displacement
-    stays inside the window (the coverage guard verifies it).  Mirrors
-    ops/knn.py:173-239 step by step: the clamped window, the lexicographic
-    roll order, min_image_diff(cands, pos) summed over xyz, the self slot
-    set to -1, kernel A's selection, then the arithmetic slot decode with
-    per-axis wrap.
+    the (2w+1)^3 sites around it (the rolls of the position cube), exact
+    while every displacement stays inside the window (the coverage guard
+    verifies it).  Mirrors ops/knn.py:173-239 step by step -- the clamped
+    window, the lexicographic roll order, min_image_diff(cands, pos)
+    summed over xyz, the self slot set to -1, the lowest-slot tie rule,
+    the slot decode with per-axis wrap -- in one launch of kernel A's
+    lattice_knn (ops/kernels/topk_kernels.py).
     """
-    b, n, _ = pos.shape
-    d2 = lattice_sq_dist(pos, cells, box, window)
-    w, _ = _lattice_window(cells, window)
-    m = 2 * w + 1
-    sel = topk_min(d2.reshape(b * n, m ** 3), k).reshape(b, n, k).long()
-    ii = torch.arange(n, device=pos.device)
-    x = (ii // (cells * cells))[:, None]
-    y = ((ii // cells) % cells)[:, None]
-    z = (ii % cells)[:, None]
-    nx = torch.remainder(x + sel // (m * m) - w, cells)
-    ny = torch.remainder(y + (sel // m) % m - w, cells)
-    nz = torch.remainder(z + sel % m - w, cells)
-    return ((nx * cells + ny) * cells + nz).to(torch.int32)
+    return lattice_knn(pos, k, cells, window, box)
 
 
 def knn_periodic_lattice(pos: torch.Tensor, k: int, cells: int,

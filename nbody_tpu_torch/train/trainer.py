@@ -1,8 +1,8 @@
 """Training loop (port of nbody_tpu/train/trainer.py; reference
 train.py:84-182).
 
-One step rebuilds the kNN graph, runs forward and backward through the
-CUDA gather / scatter / selection kernels, and applies Adam
+One step rebuilds the kNN graph (one fused CUDA kernel), runs forward
+and backward through the CUDA gather / scatter kernels, and applies Adam
 (``torch.optim.Adam`` with optax.adam's betas and eps; the update formulas
 agree).  PyTorch runs eagerly, so the step is a plain function.  The
 device is explicit.

@@ -1,9 +1,11 @@
-"""Port parity: the lattice kNN and kernel A's plain version.
+"""Port parity: the lattice kNN and kernel A's plain versions.
 
-The lattice graph must be bit-equal to nbody_tpu's (same slots, same order,
-same lowest-slot tie breaks), windows 2 and 3, including an undisplaced
-grid where every distance ties.  The plain selection must be bit-equal to
-jax.lax.top_k(-d2) and to the Pallas kernel in interpret mode.
+The lattice graph -- through knn_periodic_lattice_batch and through
+lattice_knn's plain version, which the card's fused kernel is held to --
+must be bit-equal to nbody_tpu's (same slots, same order, same lowest-slot
+tie breaks), windows 2 and 3, including an undisplaced grid where every
+distance ties.  The plain selection must be bit-equal to jax.lax.top_k(-d2)
+and to the Pallas kernel in interpret mode.
 """
 
 import numpy as np
@@ -23,7 +25,10 @@ from nbody_tpu_torch import config as C
 from nbody_tpu_torch.data.dataset import features_from_raw
 from nbody_tpu_torch.models.registry import coverage_violations
 from nbody_tpu_torch.ops import knn as tknn
-from nbody_tpu_torch.ops.kernels.topk_kernels import topk_min, topk_min_plain
+from nbody_tpu_torch.ops.kernels.topk_kernels import (decode_slots, lattice_knn,
+                                                     lattice_knn_plain,
+                                                     lattice_sq_dist, topk_min,
+                                                     topk_min_plain)
 
 torch.set_num_threads(1)
 
@@ -151,3 +156,47 @@ def test_coverage_violations_match_jax(za_scale, window):
     want = j_coverage(jcfg, 32.0, x_in)
     assert got == want
     assert (got == 0) == (za_scale == 1.0)
+
+
+@pytest.mark.parametrize("cells", [8, 16])
+@pytest.mark.parametrize("window", [2, 3])
+@pytest.mark.parametrize("displaced", [True, False])
+def test_lattice_knn_plain_bit_equal(cells, window, displaced):
+    """lattice_knn's plain version (the card kernel's reference) and its
+    CPU dispatch equal the JAX graph bit for bit, tie-heavy grids too."""
+    pos, _ = _positions(cells, seed=13, displaced=displaced)
+    pn_t, pn_j = _norm(pos, 4.0 * cells)
+    k = 6 if cells == 8 else 14
+    want = np.asarray(jknn.knn_periodic_lattice_batch(
+        pn_j, k, cells=cells, window=window))
+    np.testing.assert_array_equal(
+        lattice_knn_plain(pn_t, k, cells, window).numpy(), want)
+    got = lattice_knn(pn_t, k, cells, window)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_lattice_knn_slots_decode_like_topk():
+    """The plain version is the composition the fused kernel replaces:
+    lattice_sq_dist, topk_min's selection, decode_slots."""
+    pos, _ = _positions(8, seed=4)
+    pn_t, _ = _norm(pos, 32.0)
+    d2 = lattice_sq_dist(pn_t, 8, window=2)
+    assert d2.shape == (2, 512, 125) and (d2[:, :, 62] == -1.0).all()
+    sel = topk_min(d2.reshape(-1, 125), 6).reshape(2, 512, 6)
+    np.testing.assert_array_equal(decode_slots(sel, 8, 2).numpy(),
+                                  lattice_knn_plain(pn_t, 6, 8, 2).numpy())
+
+
+def test_lattice_knn_refuses_bad_inputs():
+    pos = torch.rand(1, 512, 3)
+    with pytest.raises(ValueError):
+        lattice_knn(pos, 6, cells=7)                  # not a cells^3 cube
+    with pytest.raises(ValueError):
+        lattice_knn(torch.rand(1, 27, 3), 28, cells=3, window=2)   # k > (2w+1)^3
+    with pytest.raises(ValueError):
+        lattice_knn(pos, 33, cells=8, window=3)       # k > KMAX
+    with pytest.raises(ValueError):
+        lattice_knn(pos.to("meta"), 6, cells=8)
+    with pytest.raises(ValueError):
+        lattice_knn(pos[0], 6, cells=8)

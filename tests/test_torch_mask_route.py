@@ -56,7 +56,8 @@ def _batch(family, seed=0):
 def _port(family, dtype, mask_dtype, masked_core=None):
     return build_model(C.ModelConfig(
         family=family, channels=CHANNELS[family], k_neighbors=K, dtype=dtype,
-        knn_window=2, mask_dtype=mask_dtype, masked_core=masked_core), box=BOX)
+        knn_window=2, mask_dtype=mask_dtype, masked_core=masked_core), box=BOX,
+        device="cpu")
 
 
 def _pair(family, dtype, mask_dtype, seed=3):

@@ -1,9 +1,12 @@
 """Port parity: neighbor gather / scatter-add (kernels B and C's plain
-versions and their autograd Functions) and the edge features.
+versions and their autograd Functions), the graph plan kernel C runs over,
+and the edge features.
 
 Gather in f32 is exact: equal to nbody_tpu's neighbor_gather and to the
 Pallas banded gather in interpret mode (fast=False).  Scatter, counts and
-segment mean match to rtol 1e-6 (f32 summation order) and np.add.at.
+segment mean match JAX to rtol 1e-6 (f32 summation order); the scatter's
+plain versions equal np.add.at bit for bit, the summation order the card's
+segment-sum kernel is held to.
 """
 
 import numpy as np
@@ -183,3 +186,80 @@ def test_edge_features_za_match(dtype):
         # 2^-5, and the displacement trick keeps |edges| small
         np.testing.assert_allclose(got.float().numpy(), want, rtol=0,
                                    atol=2 ** -4)
+
+
+def _plan_inputs(seed=0):
+    """A lattice graph whose targets also include a few out-of-range ids."""
+    _, idx, _ = _inputs(4, seed=seed)
+    bad = idx.copy()
+    bad[0, 5, 2], bad[1, 9, 3] = N, -1
+    return idx, bad
+
+
+@pytest.mark.parametrize("case", ["lattice", "out_of_range"])
+def test_graph_plan_matches_numpy(case):
+    idx = _plan_inputs()[case == "out_of_range"]
+    b, n, k = idx.shape
+    plan = K.graph_plan(torch.from_numpy(idx))
+    assert plan.order.dtype == plan.offsets.dtype == torch.int32
+    keys = idx + (np.arange(b) * n)[:, None, None]
+    keys = np.where((idx >= 0) & (idx < n), keys, b * n).reshape(-1)
+    np.testing.assert_array_equal(plan.order.numpy(), np.argsort(keys, kind="stable"))
+    np.testing.assert_array_equal(
+        plan.offsets.numpy(),
+        np.concatenate([[0], np.cumsum(np.bincount(keys, minlength=b * n)[:b * n])]))
+    want = np.bincount(keys, minlength=b * n + 1)[:b * n].reshape(b, n)
+    if case == "lattice":       # (jnp scatters wrap a negative id)
+        np.testing.assert_array_equal(np.asarray(jb.neighbor_counts(jnp.asarray(idx))),
+                                      want)
+    np.testing.assert_array_equal(plan.in_degree(b, n).numpy(), want)
+    np.testing.assert_array_equal(tb.neighbor_counts(torch.from_numpy(idx)).numpy(), want)
+
+
+@pytest.mark.parametrize("c", [1, 3, 16, 64])
+def test_scatter_plain_versions_bit_equal_np_add_at(c):
+    """index_add_ on the CPU adds in edge order, like np.add.at: the order
+    argument behind the card's bit-equality check of kernel C."""
+    _, idx, ev = _inputs(c, seed=c)
+    ref = np.zeros((2, N, c), np.float32)
+    for bi in range(2):
+        np.add.at(ref[bi], idx[bi].reshape(-1), ev[bi].reshape(-1, c))
+    te, ti = torch.from_numpy(ev), torch.from_numpy(idx)
+    plan = K.graph_plan(ti)
+    np.testing.assert_array_equal(K.scatter_add_plain(te, ti).numpy(), ref)
+    np.testing.assert_array_equal(K.segment_sum_plain(te, plan).numpy(), ref)
+    np.testing.assert_array_equal(K.neighbor_scatter_add(te, ti, plan).numpy(), ref)
+    # bf16: the f32 sums of the bf16 values in the same order, rounded once
+    tbf = te.to(torch.bfloat16)
+    ref_bf = np.zeros((2, N, c), np.float32)
+    for bi in range(2):
+        np.add.at(ref_bf[bi], idx[bi].reshape(-1), tbf[bi].float().numpy().reshape(-1, c))
+    want = torch.from_numpy(ref_bf).to(torch.bfloat16)
+    assert torch.equal(K.scatter_add_plain(tbf, ti), want)
+    assert torch.equal(K.neighbor_segment_sum(tbf, plan), want)
+
+
+def test_scatter_drops_out_of_range_targets():
+    _, bad = _plan_inputs()
+    ev = np.random.default_rng(4).normal(size=bad.shape + (3,)).astype(np.float32)
+    keep = (bad >= 0) & (bad < N)
+    ref = np.zeros((2, N, 3), np.float32)
+    for bi in range(2):
+        np.add.at(ref[bi], bad[bi][keep[bi]], ev[bi][keep[bi]])
+    got = tb.neighbor_scatter_add(torch.from_numpy(ev), torch.from_numpy(bad))
+    np.testing.assert_array_equal(got.numpy(), ref)
+
+
+def test_segment_sum_refuses_bad_plans():
+    _, idx, ev = _inputs(3)
+    te, ti = torch.from_numpy(ev), torch.from_numpy(idx)
+    plan = K.graph_plan(ti)
+    with pytest.raises(ValueError):
+        K.neighbor_segment_sum(te[:1], plan)                  # plan of 2 cubes
+    with pytest.raises(ValueError):
+        K.neighbor_segment_sum(te, K.GraphPlan(plan.order.long(), plan.offsets))
+    with pytest.raises(ValueError):
+        K.neighbor_segment_sum(te.to("meta"), K.GraphPlan(
+            plan.order.to("meta"), plan.offsets.to("meta")))
+    with pytest.raises(ValueError):
+        K.graph_plan(ti.long())

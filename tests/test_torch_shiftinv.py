@@ -50,7 +50,8 @@ def _pair(dtype, seed=3):
     jmodel = j_build(jcfg, box=BOX)
     jparams = jmodel.init(jax.random.PRNGKey(seed))
     tmodel = build_model(C.ModelConfig(channels=CHANNELS, k_neighbors=K,
-                                       dtype=dtype, knn_window=2), box=BOX)
+                                       dtype=dtype, knn_window=2), box=BOX,
+                         device="cpu")
     tmodel.params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     return jmodel, jparams, tmodel
 
@@ -133,7 +134,7 @@ def test_layer_matches_f32(c_in, q, is_last):
 
 
 def test_init_matches_reference_distributions():
-    model = build_model(C.ModelConfig(seed=5), box=C.BOX_SIZE)
+    model = build_model(C.ModelConfig(seed=5), box=C.BOX_SIZE, device="cpu")
     jparams = js.init_shiftinv_params(jax.random.PRNGKey(5), C.GRAPH_CHANNELS)
     assert len(model.params) == len(jparams) == 6
     for w, b, jp in zip(model.params.W, model.params.B, jparams):
@@ -142,22 +143,107 @@ def test_init_matches_reference_distributions():
         np.testing.assert_array_equal(b.detach().numpy(), np.asarray(jp["B"]))
         std = np.sqrt(2.0 / (w.shape[1] + w.shape[2]))
         assert 0.6 * std < float(w.detach().std()) < 1.4 * std
-    again = build_model(C.ModelConfig(seed=5), box=C.BOX_SIZE)
+    again = build_model(C.ModelConfig(seed=5), box=C.BOX_SIZE, device="cpu")
     np.testing.assert_array_equal(again.params.W[0].detach().numpy(),
                                   model.params.W[0].detach().numpy())
     # a non-graph channel list falls back to GRAPH_CHANNELS, as in JAX
-    assert len(build_model(C.ModelConfig(channels=(6, 8, 3))).params) == 6
+    assert len(build_model(C.ModelConfig(channels=(6, 8, 3)),
+                           device="cpu").params) == 6
 
 
 def test_build_model_refuses_unported_families():
     for fam in ("set", "attn", "shiftinv15"):
         with pytest.raises(NotImplementedError):
-            build_model(C.ModelConfig(family=fam))
+            build_model(C.ModelConfig(family=fam), device="cpu")
     with pytest.raises(NotImplementedError):
-        build_model(C.ModelConfig(neighbor_impl="banded"))
+        build_model(C.ModelConfig(neighbor_impl="banded"), device="cpu")
     # the int8 mask route is ported (tests/test_torch_mask_route.py)
-    assert build_model(C.ModelConfig(mask_dtype="int8")).cfg.mask_dtype == "int8"
+    assert build_model(C.ModelConfig(mask_dtype="int8"),
+                       device="cpu").cfg.mask_dtype == "int8"
     with pytest.raises(ValueError):
-        build_model(C.ModelConfig(family="bogus"))
+        build_model(C.ModelConfig(family="bogus"), device="cpu")
     with pytest.raises(ValueError):
-        build_model(C.ModelConfig(dtype="float16"))
+        build_model(C.ModelConfig(dtype="float16"), device="cpu")
+
+
+def _network_inputs(dtype, seed=7):
+    """Random layer params, edges and a lattice graph, in numpy."""
+    rng = np.random.default_rng(seed)
+    params = [{"W": (rng.normal(size=(4, a, b)) * 0.3).astype(np.float32),
+               "B": rng.normal(size=(1, b)).astype(np.float32)}
+              for a, b in zip(CHANNELS[:-1], CHANNELS[1:])]
+    x_in, _ = _batch(seed=4)
+    pos = x_in[..., :3] + BOX / 2.0 + x_in[..., 3:6]
+    idx = np.array(j_lattice(jnp.mod(jnp.asarray(pos) / BOX, 1.0), K,
+                             cells=CELLS, window=2))
+    edges = rng.normal(size=(2, CELLS ** 3, K, 3)).astype(np.float32)
+    ct = rng.normal(size=(2, CELLS ** 3, CHANNELS[-1])).astype(np.float32)
+    return params, edges, idx, ct
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_network_over_one_graph_plan_matches_jax(dtype, monkeypatch):
+    """shiftinv_network builds the graph plan once and every scatter of the
+    forward and the backward runs over it; outputs and gradients (edges
+    and params) match JAX's shiftinv_network."""
+    from nbody_tpu_torch.models import shiftinv as tshift
+    from nbody_tpu_torch.ops import banded as tband
+    from nbody_tpu_torch.ops.kernels import banded_kernels as tk
+    built, plan_of = [], tk.graph_plan
+
+    def counted_plan(idx):
+        built.append(idx.shape)
+        return plan_of(idx)
+
+    for mod in (tshift, tband, tk):
+        monkeypatch.setattr(mod, "graph_plan", counted_plan)
+    params, edges, idx, ct = _network_inputs(dtype)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+
+    def jloss(p, e):
+        out = js.shiftinv_network(p, e, jnp.asarray(idx))
+        return jnp.sum(out.astype(jnp.float32) * jnp.asarray(ct)), out
+
+    jp = jax.tree_util.tree_map(lambda a: jnp.asarray(a).astype(jdt), params)
+    (jval, jout), (jgp, jge) = jax.value_and_grad(jloss, argnums=(0, 1),
+                                                  has_aux=True)(
+        jp, jnp.asarray(edges).astype(jdt))
+    tp = [{k: torch.from_numpy(v).to(tdt).requires_grad_() for k, v in p.items()}
+          for p in params]
+    te = torch.from_numpy(edges).to(tdt).requires_grad_()
+    out = ts.shiftinv_network(tp, te, torch.from_numpy(idx))
+    loss = torch.sum(out.float() * torch.from_numpy(ct))
+    loss.backward()
+    tval = float(loss.detach())
+    assert built == [idx.shape] and out.dtype == tdt
+    tg = np.concatenate([te.grad.float().numpy().ravel()] + [
+        t[k].grad.float().numpy().ravel() for t in tp for k in ("W", "B")])
+    jg = np.concatenate([np.asarray(jge.astype(jnp.float32)).ravel()] + [
+        np.asarray(j[k].astype(jnp.float32)).ravel() for j in jgp for k in ("W", "B")])
+    tg, jg = tg.astype(np.float64), jg.astype(np.float64)
+    if dtype == "float32":
+        np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(tval, float(jval), rtol=1e-5)
+        rms = float(np.sqrt(np.mean(jg ** 2)))
+        scale = np.maximum(np.abs(jg), 0.05 * rms)
+        np.testing.assert_allclose(tg / scale, jg / scale, rtol=0, atol=2e-3)
+    else:
+        np.testing.assert_allclose(tval, float(jval), rtol=3e-2)
+        cos = float(jg @ tg / (np.linalg.norm(jg) * np.linalg.norm(tg)))
+        assert cos > 0.998, f"gradient cosine similarity {cos}"
+
+
+def test_build_model_defaults_to_the_card(monkeypatch):
+    """With no device named the model is built on the card, as the CLI's
+    --platform cuda; a machine without one refuses, as resolve_device does."""
+    from nbody_tpu_torch.models import registry
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(C.ModelConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        registry.ShiftInvModel(C.ModelConfig(), C.BOX_SIZE)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert registry.resolve_device() == torch.device("cuda")
+    assert registry.resolve_device("cpu") == torch.device("cpu")
+    assert build_model(C.ModelConfig(), device="cpu").params.W[0].device.type == "cpu"

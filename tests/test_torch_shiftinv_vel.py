@@ -71,7 +71,8 @@ def _pair(family, dtype, impl="masked", mask_dtype="auto", seed=3):
     jparams = jmodel.init(jax.random.PRNGKey(seed))
     tmodel = build_model(C.ModelConfig(
         family=family, channels=channels, k_neighbors=K, dtype=dtype,
-        knn_window=2, neighbor_impl=impl, mask_dtype=mask_dtype), box=BOX)
+        knn_window=2, neighbor_impl=impl, mask_dtype=mask_dtype), box=BOX,
+        device="cpu")
     tmodel.params = params_from_jax(jax.tree_util.tree_map(np.asarray, jparams))
     return jmodel, jparams, tmodel
 
@@ -209,7 +210,8 @@ def test_params_from_jax_vel_tree():
         np.testing.assert_array_equal(b.detach().numpy(), jp["B"])
     names = {n for n, _ in p.named_parameters()}
     assert "T" in names and len(names) == 2 * len(p) + 1
-    model = build_model(C.ModelConfig(family="shiftinv_vel"), box=C.BOX_SIZE)
+    model = build_model(C.ModelConfig(family="shiftinv_vel"), box=C.BOX_SIZE,
+                        device="cpu")
     assert isinstance(model.params, ShiftInvVelParams)
     assert [tuple(w.shape) for w in model.params.W] == [
         (4, a, b) for a, b in zip(C.GRAPH_VEL_CHANNELS[:-1], C.GRAPH_VEL_CHANNELS[1:])]
@@ -318,7 +320,8 @@ def test_config_velocity_and_route_flags():
         with pytest.raises(ValueError):
             C.config_from_args(C.build_parser().parse_args(flags))
     # int4 masks are ported (tests/test_torch_mask_route.py); banded is not
-    assert build_model(C.ModelConfig(mask_dtype="int4")).cfg.mask_dtype == "int4"
+    assert build_model(C.ModelConfig(mask_dtype="int4"),
+                       device="cpu").cfg.mask_dtype == "int4"
     with pytest.raises(NotImplementedError):
         C.config_from_args(C.build_parser().parse_args(["--impl", "banded"]))
 

@@ -62,7 +62,8 @@ def test_adam_steps_track_optax():
                                     neighbor_impl="banded"), box=4.0 * CELLS)
     params = jmodel.init(jax.random.PRNGKey(2))
     tmodel = build_model(C.ModelConfig(channels=channels, k_neighbors=k,
-                                       knn_window=2), box=4.0 * CELLS)
+                                       knn_window=2), box=4.0 * CELLS,
+                         device="cpu")
     tmodel.params = params_from_jax(jax.tree_util.tree_map(np.asarray, params))
     step = make_train_step(tmodel, make_optimizer(tmodel, lr))
 
