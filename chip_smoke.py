@@ -28,16 +28,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the CPU (plain versions) must agree to rtol 1e-4;
   6. hold kernels D-G against their plain versions at the 64^3 index
      route's shapes (cores (4,8,8) and (8,8,8)) and the 32^3 block route's,
-     for every width the layers give them, D/E in bf16 and F/G in f32 and
-     bf16 with fast on and off; check both autograd pairs against the CPU;
-     time kernel, plain version and library call; lattice_knn bit-equal
-     to its plain version at 64^3 b1;
+     for every width the layers give them: the block plans built on the
+     card equal the CPU's; the gathers D/F bit-equal; the segment sums E
+     (f32 and bf16 input) and G (f32 and bf16, fast on and off) bit-equal
+     to their CPU plain versions and identical across two launches; both
+     autograd pairs bit-equal to the CPU's; time kernel, plain version and
+     library call (the scatters at every width); lattice_knn bit-equal to
+     its plain version at 64^3 b1;
   7. the 64^3 shiftinv_vel path through its entry points: Dataset with
      velocities (6 synthetic 64^3 cubes), Trainer with the coverage guard
      (the host k-d tree search), 4 bf16 fit steps at batch 1 on
      --mask_dtype index and evaluate, counting launches (D and E run, B
-     and C do not); step time and peak memory, also for core (8,8,8);
-  8. the --impl block route at 32^3 b4: 3 bf16 fit steps on F and G;
+     and C do not); one train step must launch lattice_knn once, D 12
+     times, E 11 times and nothing else; step time and peak memory, also
+     for core (8,8,8);
+  8. the --impl block route at 32^3 b4: 3 bf16 fit steps on F and G; one
+     train step must launch lattice_knn once, F 12 times, G 11 times and
+     nothing else;
   9. the same params and 32^3 batch through the index route (D/E) and the
      direct route (B/C) in bf16: loss within rtol 3e-2, gradient cosine
      above 0.998;
@@ -79,6 +86,12 @@ SEG_WIDTHS = (1,) + WIDTHS        # and the segment sum's, counts included
 # launches of one main-path train step: the graph build, and the segment
 # sum's 6 forward scatter-means + 5 gradients of the gathers
 STEP_LAUNCHES = {"lattice_knn": 1, "topk_min": 0, "neighbor_segment_sum": 11}
+# every launch of one train step on the 64^3 index route and the 32^3
+# block route: the features' gather, 6 forward and 5 backward gathers; the
+# 6 forward scatter-means and 5 gradients of the gathers (the in-degree
+# counts come off the block plan, with no launch)
+INDEX_STEP_LAUNCHES = {"lattice_knn": 1, "idx_dot_gather": 12, "idx_dot_scatter": 11}
+BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "block_gather": 12, "block_scatter": 11}
 # H100 SXM published peaks (NVIDIA data sheet), the bounds' denominators
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_OPS = 67e12
@@ -131,6 +144,23 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=10):
+    """Mean device time of one call of fn: the self time of every CUDA
+    kernel it launches, summed by torch.profiler over `iters` calls (the
+    host's time between launches excluded, which cuda_ms includes)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
 
 
 def bf16_ulp(x):
@@ -325,18 +355,59 @@ def check_kernels(dev, idx):
 
 
 def scatter_worst(got, want, absum, bf16_out):
-    """(max |err|, max(|err| - tol)) of a scatter: f32 sums within 1e-5 of
-    the summed |terms| (the order of the atomic adds varies); a bf16
-    result one bf16 ulp more."""
+    """(max |err|, max(|err| - tol)) of a dense product: f32 sums within
+    1e-5 of the summed |terms| (the order of the adds differs from the
+    plain version's); a bf16 result one bf16 ulp more."""
     err = (got.float() - want.float()).abs()
     tol = 1e-5 * absum + (bf16_ulp(want) if bf16_out else 0)
     return float(err.max()), float((err - tol).max())
 
 
+def hold_segment_sum(name, kern, plain_cpu, note, label):
+    """A segment-sum scatter (E or G) on the card: bit-equal to its plain
+    version on the CPU, and identical across two launches."""
+    got, again = kern(), kern()
+    want = plain_cpu()
+    err = float((got.cpu() - want).abs().max())
+    note(name, err)
+    equal, same = torch.equal(got.cpu(), want), torch.equal(got, again)
+    check(equal, f"{name} {label} is not bit-equal to the CPU plain version "
+                 f"(max|err| {err:.3e})")
+    check(same, f"{name} {label} differs between two launches")
+
+
+def scatter_library(plan, x, p_size):
+    """One index_add_ of the f32 edge rows into per-block (P + 1)-row
+    sums (a position outside the patch lands in a sink row): the call."""
+    pos = plan.pos
+    blocks = pos.shape[0] * pos.shape[1]
+    blk = torch.arange(blocks, device=pos.device).reshape(pos.shape[:2] + (1,))
+    valid = (pos >= 0) & (pos < p_size)
+    ids = torch.where(valid, blk * (p_size + 1) + pos,
+                      blk * (p_size + 1) + p_size).reshape(-1)
+    vf = x.float().reshape(-1, x.shape[-1])
+    acc = torch.zeros((blocks * (p_size + 1), x.shape[-1]), device=x.device)
+    return lambda: acc.index_add_(0, ids, vf)
+
+
+def scatter_bound(plan, x, out):
+    """The segment sum's bound: the plan's order and offsets and the
+    valid edge rows read once, the f32 output written once; one add per
+    valid element."""
+    n_valid = int(plan.offsets[-1])
+    c = x.shape[-1]
+    return bound(nbytes(plan.order, plan.offsets, out)
+                 + n_valid * c * x.element_size(), float(n_valid * c))
+
+
 def check_select_kernels(dev, idx64, idx32):
     """Kernels D-G against their plain versions at the 64^3 index route's
-    and the 32^3 block route's shapes, both autograd pairs against the
-    CPU, and times.  Returns per-kernel records."""
+    and the 32^3 block route's shapes: the gathers bit-equal, the segment
+    sums E and G over the card's block plan (equal to the CPU's) bit-equal
+    to their CPU plain versions at every width, f32 and bf16 x fast, and
+    identical across two launches; both autograd pairs against the CPU;
+    kernel, plain version and library call timed at every width.  Returns
+    per-kernel records."""
     from nbody_tpu_torch.ops import banded, blocked
     from nbody_tpu_torch.ops.kernels import block_kernels as BK
     from nbody_tpu_torch.ops.kernels import idx_kernels as IK
@@ -352,31 +423,47 @@ def check_select_kernels(dev, idx64, idx32):
     def note(name, err):
         rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
 
+    def plans(plan, p):
+        cpu = BK.block_plan(plan.pos.cpu(), p)
+        check(all(torch.equal(a.cpu(), b) for a, b in zip(plan, cpu)),
+              "the card's block plan differs from the CPU's")
+        deg = cpu.site_degree()
+        plan_ms = cuda_ms(lambda: BK.block_plan(plan.pos, p))
+        print(f"block plan {tuple(plan.pos.shape)} P={p}: {int(cpu.offsets[-1])} "
+              f"valid edges, site degree max {int(deg.max())}, empty sites "
+              f"{float((deg == 0).float().mean()):.3f}; equal to the CPU's; "
+              f"build {plan_ms:.4f} ms (stable sort + search, plain torch)")
+        return cpu
+
     bf = torch.bfloat16
-    pos_by_core = {}
+    plan_by_core = {}
     for core in INDEX_CORES:
-        pos = blocked.block_positions(idx64, CELLS64, WINDOW, core,
-                                      drop_self_slot0=True)
         p = blocked.patch_size(CELLS64, WINDOW, core)
-        pos_by_core[core] = (pos, p)
+        plan = blocked.block_index_plan(idx64, CELLS64, WINDOW, core,
+                                        drop_self_slot0=True)
+        plan_cpu = plans(plan, p)
+        plan_by_core[core] = (plan, p)
+        pos = plan.pos
         _, nb, et = pos.shape
         for c in SELECT_WIDTHS:
             pat = randn((1, nb, p, c), bf)
             got, want = IK.dot_gather(pos, pat), IK.dot_gather_plain(pos, pat)
             note("idx_dot_gather", float((got.float() - want.float()).abs().max()))
             check(torch.equal(got, want), f"idx_dot_gather {core} C={c} not bit-equal")
-            ev = randn((1, nb, et, c), bf)
-            err, worst = scatter_worst(
-                IK.dot_scatter(pos, ev, p), IK.dot_scatter_plain(pos, ev, p),
-                IK.dot_scatter_plain(pos, ev.abs(), p), False)
-            note("idx_dot_scatter", err)
+            for dt in (torch.float32, bf):
+                ev = randn((1, nb, et, c), dt)
+                hold_segment_sum(
+                    "idx_dot_scatter", lambda: IK.dot_scatter(plan, ev, p),
+                    lambda: IK.dot_scatter_plain(plan_cpu, ev.cpu(), p), note,
+                    f"{core} C={c} {dt}")
             print(f"kernels D/E core {core} (1, {nb}, {et}) P={p} C={c:>2}: "
-                  f"gather bit-equal, scatter max|err| {err:.3e} "
-                  f"(worst err - tol {worst:.3e})")
-            check(worst <= 0, f"idx_dot_scatter {core} C={c} out of tolerance")
+                  "gather bit-equal; segment sum bit-equal to the CPU (f32 and "
+                  "bf16 input) and identical across launches")
 
-    p32 = blocked.edge_block_positions(idx32, CELLS, WINDOW, blocked.CORE)
+    plan32 = blocked.block_index_plan(idx32, CELLS, WINDOW, blocked.CORE)
     pp32 = blocked.patch_size(CELLS, WINDOW, blocked.CORE)
+    plan32_cpu = plans(plan32, pp32)
+    p32 = plan32.pos
     b, nb, et = p32.shape
     for c in SELECT_WIDTHS:
         for dt in (torch.float32, bf):
@@ -388,100 +475,112 @@ def check_select_kernels(dev, idx64, idx32):
                 check(torch.equal(got, want),
                       f"block_gather C={c} {dt} fast={fast} not bit-equal")
                 ev = randn((b, nb, et, c), torch.float32).to(dt)
-                err, worst = scatter_worst(
-                    BK.block_scatter(p32, ev, pp32, fast),
-                    BK.block_scatter_plain(p32, ev, pp32, fast),
-                    BK.block_scatter_plain(p32, ev.abs(), pp32, fast), False)
-                note("block_scatter", err)
-                check(worst <= 0, f"block_scatter C={c} {dt} fast={fast} "
-                                  "out of tolerance")
+                hold_segment_sum(
+                    "block_scatter", lambda: BK.block_scatter(plan32, ev, pp32, fast),
+                    lambda: BK.block_scatter_plain(plan32_cpu, ev.cpu(), pp32, fast),
+                    note, f"C={c} {dt} fast={fast}")
         print(f"kernels F/G (4, {nb}, {et}) P={pp32} C={c:>2}: gathers "
-              f"bit-equal, scatters within tolerance (f32/bf16 x fast on/off)")
+              "bit-equal; segment sums bit-equal to the CPU and identical "
+              "across launches (f32/bf16 x fast on/off)")
 
-    # autograd pairs, card against the CPU's plain versions
-    pos, p = pos_by_core[INDEX_CORES[0]]
-    _, nb, et = pos.shape
+    # autograd pairs, card against the CPU's plain versions: bit-equal
+    plan, p = plan_by_core[INDEX_CORES[0]]
+    plan_cpu = BK.BlockPlan(*(t.cpu() for t in plan))
+    _, nb, et = plan.pos.shape
     pat = randn((1, nb, p, 16), bf).requires_grad_()
     ct = randn((1, nb, et, 16), bf)
-    (gp,) = torch.autograd.grad(IK.idx_dot_gather(pos, pat), pat, ct)
+    (gp,) = torch.autograd.grad(IK.idx_dot_gather(plan, pat), pat, ct)
     pc = pat.detach().cpu().requires_grad_()
-    (gpc,) = torch.autograd.grad(IK.idx_dot_gather(pos.cpu(), pc), pc, ct.cpu())
-    _, gworst = scatter_worst(gp.cpu(), gpc, IK.dot_scatter_plain(
-        pos.cpu(), ct.abs().cpu(), p), True)
+    (gpc,) = torch.autograd.grad(IK.idx_dot_gather(plan_cpu, pc), pc, ct.cpu())
     ev = randn((1, nb, et, 16), bf).requires_grad_()
     ct2 = randn((1, nb, p, 16), torch.float32)
-    (ge,) = torch.autograd.grad(IK.idx_dot_scatter(pos, ev, p), ev, ct2)
+    (ge,) = torch.autograd.grad(IK.idx_dot_scatter(plan, ev, p), ev, ct2)
     ec = ev.detach().cpu().requires_grad_()
-    (gec,) = torch.autograd.grad(IK.idx_dot_scatter(pos.cpu(), ec, p), ec,
+    (gec,) = torch.autograd.grad(IK.idx_dot_scatter(plan_cpu, ec, p), ec,
                                  ct2.cpu())
-    print(f"autograd idx pair: gather grad (kernel E) worst err - tol "
-          f"{gworst:.3e}; scatter grad (kernel D) bit-equal "
+    print(f"autograd idx pair: gather grad (kernel E) bit-equal "
+          f"{torch.equal(gp.cpu(), gpc)}; scatter grad (kernel D) bit-equal "
           f"{torch.equal(ge.cpu(), gec)}")
-    check(gworst <= 0 and torch.equal(ge.cpu(), gec), "idx pair gradients disagree")
+    check(torch.equal(gp.cpu(), gpc) and torch.equal(ge.cpu(), gec),
+          "idx pair gradients disagree")
     lat = (CELLS, WINDOW)
     v = randn((BATCH, CELLS ** 3, 16), bf).requires_grad_()
     ct = randn((BATCH, CELLS ** 3, K, 16), bf)
-    (gv,) = torch.autograd.grad(banded.neighbor_gather(v, idx32, lat), v, ct)
+    (gv,) = torch.autograd.grad(banded.neighbor_gather(v, idx32, lat, plan=plan32),
+                                v, ct)
     vc = v.detach().cpu().requires_grad_()
     (gvc,) = torch.autograd.grad(banded.neighbor_gather(vc, idx32.cpu(), lat),
                                  vc, ct.cpu())
-    _, bworst = scatter_worst(gv.cpu(), gvc, banded.neighbor_scatter_add(
-        ct.abs().cpu().float(), idx32.cpu()), True)
     e = randn((BATCH, CELLS ** 3, K, 16), bf).requires_grad_()
     ct2 = randn((BATCH, CELLS ** 3, 16), bf)
-    (ge,) = torch.autograd.grad(banded.neighbor_scatter_add(e, idx32, lat), e, ct2)
+    (ge,) = torch.autograd.grad(banded.neighbor_scatter_add(e, idx32, lat,
+                                                            plan=plan32), e, ct2)
     ec = e.detach().cpu().requires_grad_()
     (gec,) = torch.autograd.grad(banded.neighbor_scatter_add(ec, idx32.cpu(), lat),
                                  ec, ct2.cpu())
-    print(f"autograd block pair: gather grad (kernel G) worst err - tol "
-          f"{bworst:.3e}; scatter grad (kernel F) bit-equal "
+    print(f"autograd block pair: gather grad (kernel G) bit-equal "
+          f"{torch.equal(gv.cpu(), gvc)}; scatter grad (kernel F) bit-equal "
           f"{torch.equal(ge.cpu(), gec)}")
-    check(bworst <= 0 and torch.equal(ge.cpu(), gec),
+    check(torch.equal(gv.cpu(), gvc) and torch.equal(ge.cpu(), gec),
           "block pair gradients disagree")
 
-    # times at the widest layer width: D/E at the default core, F/G with
-    # the block route's own setting (bf16, fast); beside each, one
-    # index_select / index_add_ on precomputed int64 ids (a position
-    # outside the patch reads row 0, or lands in a sink row) and the bound
+    # times: the scatters at every width (E at both cores, bf16; G with the
+    # block route's setting, bf16 and fast), beside their plain versions
+    # and one index_add_, per call with CUDA events and, for kernel and
+    # library, on the device alone (at narrow widths a call's host work
+    # outlasts its device work); the record keeps C 64 at the default core.  The
+    # gathers at C 64 beside one index_select on precomputed int64 ids (a
+    # position outside the patch reads row 0).  Bounds from this run's
+    # plans and inputs.
+    scatters = [("idx_dot_scatter", core, plan, p, 1,
+                 lambda pl, x, q: IK.dot_scatter(pl, x, q),
+                 lambda pl, x, q: IK.dot_scatter_plain(pl, x, q))
+                for core, (plan, p) in plan_by_core.items()]
+    scatters.append(("block_scatter", blocked.CORE, plan32, pp32, b,
+                     lambda pl, x, q: BK.block_scatter(pl, x, q, True),
+                     lambda pl, x, q: BK.block_scatter_plain(pl, x, q, True)))
+    for name, core, plan, p, nbatch, kern, plain in scatters:
+        _, nb, et = plan.pos.shape
+        for c in SELECT_WIDTHS:
+            x = randn((nbatch, nb, et, c), bf)
+            out = kern(plan, x, p)
+            library = scatter_library(plan, x, p)
+            ms = cuda_ms(lambda: kern(plan, x, p))
+            plain_ms = cuda_ms(lambda: plain(plan, x, p))
+            lib_ms = cuda_ms(library)
+            dev_ms = device_ms(lambda: kern(plan, x, p))
+            dev_lib_ms = device_ms(library)
+            b_ms, by = scatter_bound(plan, x, out)
+            print(f"time {name} core {core} C={c:>2} bf16: kernel {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{b_ms:.4f} ms ({by}); kernel faster than both "
+                  f"{ms < min(plain_ms, lib_ms)}; device time: kernel "
+                  f"{dev_ms:.4f} ms, library {dev_lib_ms:.4f} ms")
+            if c == 64 and core in (INDEX_CORES[0], blocked.CORE):
+                rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=b_ms, bound_by=by)
     c = 64
-    pos, p = pos_by_core[INDEX_CORES[0]]
-    _, nb, et = pos.shape
-    pat, ev = randn((1, nb, p, c), bf), randn((1, nb, et, c), bf)
-    pat32 = randn((b, p32.shape[1], pp32, c), bf)
-    ev32 = randn((b, p32.shape[1], p32.shape[2], c), bf)
-    cases = {
-        "idx_dot_gather": (pos, pat, lambda: IK.dot_gather(pos, pat),
-                           lambda: IK.dot_gather_plain(pos, pat)),
-        "idx_dot_scatter": (pos, ev, lambda: IK.dot_scatter(pos, ev, p),
-                            lambda: IK.dot_scatter_plain(pos, ev, p)),
-        "block_gather": (p32, pat32, lambda: BK.block_gather(p32, pat32, True),
-                         lambda: BK.block_gather_plain(p32, pat32, True)),
-        "block_scatter": (p32, ev32, lambda: BK.block_scatter(p32, ev32, pp32, True),
-                          lambda: BK.block_scatter_plain(p32, ev32, pp32, True)),
+    plan, p = plan_by_core[INDEX_CORES[0]]
+    pos = plan.pos
+    gathers = {
+        "idx_dot_gather": (pos, p, randn((1, pos.shape[1], p, c), bf),
+                           IK.dot_gather, IK.dot_gather_plain),
+        "block_gather": (p32, pp32, randn((b, p32.shape[1], pp32, c), bf),
+                         lambda q, x: BK.block_gather(q, x, True),
+                         lambda q, x: BK.block_gather_plain(q, x, True)),
     }
-    for name, (sel, x, kern, plain) in cases.items():
+    for name, (sel, psize, x, kern, plain) in gathers.items():
         r = rec[name]
-        psize = x.shape[2] if name.endswith("gather") else (
-            p if name.startswith("idx") else pp32)
         blocks = sel.shape[0] * sel.shape[1]
         blk = torch.arange(blocks, device=dev).reshape(sel.shape[:2] + (1,))
         valid = (sel >= 0) & (sel < psize)
-        out = kern()
-        r["ms"], r["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
-        if name.endswith("gather"):
-            ids = torch.where(valid, blk * psize + sel, 0).reshape(-1)
-            flat = x.reshape(-1, c)
-            r["library_ms"] = cuda_ms(lambda: flat.index_select(0, ids))
-            set_bound(r, nbytes(sel, x, out))
-        else:
-            ids = torch.where(valid, blk * (psize + 1) + sel,
-                              blk * (psize + 1) + psize).reshape(-1)
-            vf = x.float().reshape(-1, c)
-            acc = torch.zeros((blocks * (psize + 1), c), device=dev)
-            r["library_ms"] = cuda_ms(lambda: acc.index_add_(0, ids, vf))
-            n_valid = int(valid.sum())
-            set_bound(r, nbytes(sel, out) + n_valid * c * x.element_size(),
-                      float(n_valid * c))
+        out = kern(sel, x)
+        r["ms"], r["plain_ms"] = cuda_ms(lambda: kern(sel, x)), cuda_ms(lambda: plain(sel, x))
+        ids = torch.where(valid, blk * psize + sel, 0).reshape(-1)
+        flat = x.reshape(-1, c)
+        r["library_ms"] = cuda_ms(lambda: flat.index_select(0, ids))
+        set_bound(r, nbytes(sel, x, out))
+    for name, r in rec.items():
         where = (f"64^3 core {INDEX_CORES[0]}" if name.startswith("idx")
                  else "32^3 b4 core (4, 4, 8)")
         print(f"time {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -604,6 +703,16 @@ def reset_counts(*modules):
         m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
 
 
+def one_step_launches(trainer, x, y, counted, want, label):
+    """Every kernel launch of one train step must be `want`, exactly."""
+    reset_counts(*counted)
+    trainer.train_step(x, y)
+    torch.cuda.synchronize()
+    step = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    print(f"launches in one {label} train step: {step}")
+    check(step == want, f"one {label} train step launched {step}, expected {want}")
+
+
 def step_time(trainer, x, y, iters, label):
     """CUDA-event step time and peak device memory of trainer's step."""
     dev = x.device
@@ -682,6 +791,7 @@ def run_vel64(dev, ds, trainer, counted):
     print(f"64^3 evaluate: cube {preds.shape}, errors {errors.tolist()}")
 
     x, y = split_batch(torch.as_tensor(ds.X_train[:1], device=dev), 9)
+    one_step_launches(trainer, x, y, counted, INDEX_STEP_LAUNCHES, "64^3 index")
     step_time(trainer, x, y, 5, "64^3 b1 K14 w2 bf16 shiftinv_vel, index core "
                                 "(4, 8, 8)")
     cfg = trainer.cfg
@@ -718,6 +828,7 @@ def run_block32(dev, C, dataset, counted):
     check(counts["block_gather"] > 0 and counts["block_scatter"] > 0,
           "kernels F/G did not run on the --impl block path")
     x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
+    one_step_launches(trainer, x, y, counted, BLOCK_STEP_LAUNCHES, "--impl block")
     step_time(trainer, x, y, 5, "32^3 b4 K14 w2 bf16 shiftinv, --impl block")
     return counts
 

@@ -11,7 +11,8 @@
     python -m nbody_tpu_torch.cli.train --platform cpu --cells 8 -i 4 ...
 
 Runs fit, then evaluate on the test split, and prints the reference-style
-results.  Saving .npy artifacts and checkpoints is not ported yet.
+results.  Saving .npy artifacts and checkpoints is not ported yet, so
+``-n/--name``, which names them, is refused.
 """
 
 from __future__ import annotations
@@ -38,8 +39,7 @@ def main(argv=None) -> int:
     device = resolve_device(args.platform)
     dataset = make_dataset(cfg.data)
     trainer = Trainer(cfg, device, dataset=dataset)
-    name = f" {cfg.train.name}," if cfg.train.name else ""
-    print(f"\nTraining{name} ({cfg.model.family}, N={dataset.num_particles}, "
+    print(f"\nTraining ({cfg.model.family}, N={dataset.num_particles}, "
           f"b={cfg.train.batch_size}, {cfg.model.dtype}, {device}):\n{'=' * 78}")
     t0 = time.time()
     trainer.fit()

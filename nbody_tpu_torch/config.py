@@ -126,7 +126,6 @@ class TrainConfig:
     batch_size: int = BATCH_SIZE
     learn_rate: float = LEARN_RATE
     checkpoint_every: int = 250               # reference train.py:29
-    name: str = ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -156,7 +155,8 @@ def build_parser() -> argparse.ArgumentParser:
     adg("-k", "--kneighbors", type=int, default=NUM_NEIGHBORS, metavar="K",
         help="Number of neighbors in graph model (KNN); K == -1 selects set model")
     adg("-n", "--name", type=str, default="", metavar="name",
-        help="Name for model; randomly generated if not specified")
+        help="(not ported) name under which the JAX CLI saves the "
+             "checkpoints, error series and result cube")
     adg("-s", "--seed", type=int, default=PARAMS_SEED, metavar="X",
         help="Random seed for parameter initialization")
     adg("-l", "--learnrate", type=float, default=LEARN_RATE, metavar="lr",
@@ -223,6 +223,8 @@ _UNPORTED_FLAGS = {
     "ensemble": 0, "data_axis": 1, "particle_axis": 1, "streaming": False,
     "scan": 0, "device_data": "auto", "restore": False, "trace": "",
     "remat": False,
+    # a name saves checkpoints and artifacts under it (ROADMAP Queue 1)
+    "name": "",
 }
 
 
@@ -277,8 +279,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
     train = TrainConfig(
         num_iters=args.num_iters,
         batch_size=args.batch_size,
-        learn_rate=args.learnrate,
-        name=args.name)
+        learn_rate=args.learnrate)
     return Config(data=data, model=model, train=train)
 
 

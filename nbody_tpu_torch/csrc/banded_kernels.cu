@@ -27,29 +27,18 @@
 // 8, 4 or 2 bytes) its byte length and alignment allow -- an exact bit copy
 // in any dtype, with no rounding of f32 input.
 //
-// Scatter design (the segment sum): the caller's graph plan lists the flat
-// edge ids (b*N + n)*K + k sorted by target b*N + idx, ties by ascending
-// edge id (`order`), with each target's run delimited by `offsets` (B*N + 1
-// entries; edges of a target outside [0, N) lie past the last offset).
-// Each target row is owned by ceil(C / V) threads, one per V-element vector
-// of the row (16 bytes where the row length and alignment allow: 8 lanes
-// per row at C 64 bf16, 16 at C 64 f32; rows of 2 or 6 bytes at C 1 or 3
-// take one 2-byte element per thread, so every thread still owns work).
-// A thread walks its target's in-edges in plan order, four at a time so
-// that four row loads are in flight, and accumulates in f32 registers
-// (bf16 is widened exactly).  The in-degree is data-dependent (about 14
-// on average, up to ~40 on displaced cubes), so the loop is bounded by the
-// offsets.  The row is written once, rounded to bf16 in-kernel (round to
-// nearest even, as torch's cast) where the input is bf16: no memset, no
-// atomics, no cast pass.
-//
-// Exactness: each sum is taken in ascending edge order, the order in which
-// the plain version's index_add_ on the CPU adds (sequentially over the
-// index, like np.add.at), so the kernel is bit-equal to the CPU plain
-// version in f32 and in bf16, and deterministic from launch to launch.
+// Scatter design: the segment sum of segment_sum.cuh over the caller's
+// graph plan (the flat edge ids (b*N + n)*K + k sorted by target b*N +
+// idx, ties by ascending edge id), with the input dtype as output.  Each
+// sum is taken in ascending edge order, the order in which the plain
+// version's index_add_ on the CPU adds, so the kernel is bit-equal to the
+// CPU plain version in f32 and in bf16, and deterministic from launch to
+// launch.
 
 #include <cuda_runtime.h>
 #include <cstdint>
+
+#include "segment_sum.cuh"
 
 namespace {
 
@@ -67,72 +56,6 @@ __global__ void gather_rows_kernel(const U* __restrict__ values,
   U v{};
   if (j >= 0 && (I)j < n) v = __ldg(values + (b * n + (I)j) * upr + u);
   out[i] = v;
-}
-
-// V elements of T loaded or stored as one access
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-// bf16 bits -> f32: exact (bf16 is the top half of an f32)
-__device__ __forceinline__ float to_f32(uint16_t x) {
-  return __uint_as_float((unsigned)x << 16);
-}
-
-__device__ __forceinline__ void from_f32(float x, float* out) { *out = x; }
-// f32 -> bf16 bits, round to nearest even; NaN -> 0x7FC0 (torch's cast)
-__device__ __forceinline__ void from_f32(float x, uint16_t* out) {
-  const unsigned u = __float_as_uint(x);
-  *out = (x != x) ? (uint16_t)0x7FC0
-                  : (uint16_t)((u + 0x7FFFu + ((u >> 16) & 1u)) >> 16);
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void accumulate(float (&acc)[V],
-                                           const Pack<T, V>& p) {
-#pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] += to_f32(p.v[i]);
-}
-
-template <typename T, int V, typename I>
-__global__ void segment_sum_kernel(const T* __restrict__ vals,
-                                   const int32_t* __restrict__ order,
-                                   const int32_t* __restrict__ offsets,
-                                   T* __restrict__ out, I lanes, I c,
-                                   I total) {
-  using P = Pack<T, V>;
-  const I i = (I)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const I row = i / lanes;             // target b*N + j
-  const I lane = i - row * lanes;      // vector within the row
-  const int beg = __ldg(offsets + row);
-  const int end = __ldg(offsets + row + 1);
-  const T* src = vals + lane * V;
-  float acc[V];
-#pragma unroll
-  for (int t = 0; t < V; ++t) acc[t] = 0.0f;
-  int e = beg;
-  for (; e + 4 <= end; e += 4) {
-    const I e0 = (I)__ldg(order + e), e1 = (I)__ldg(order + e + 1);
-    const I e2 = (I)__ldg(order + e + 2), e3 = (I)__ldg(order + e + 3);
-    const P p0 = *reinterpret_cast<const P*>(src + e0 * c);
-    const P p1 = *reinterpret_cast<const P*>(src + e1 * c);
-    const P p2 = *reinterpret_cast<const P*>(src + e2 * c);
-    const P p3 = *reinterpret_cast<const P*>(src + e3 * c);
-    accumulate(acc, p0);                 // in plan order: the sum's order
-    accumulate(acc, p1);
-    accumulate(acc, p2);
-    accumulate(acc, p3);
-  }
-  for (; e < end; ++e)
-    accumulate(acc, *reinterpret_cast<const P*>(
-                        src + (I)__ldg(order + e) * c));
-  P o;
-#pragma unroll
-  for (int t = 0; t < V; ++t) from_f32(acc[t], &o.v[t]);
-  *reinterpret_cast<P*>(out + row * c + lane * V) = o;
 }
 
 const int kThreads = 256;
@@ -157,46 +80,6 @@ cudaError_t launch_gather(const void* values, const int32_t* idx, void* out,
   return cudaGetLastError();
 }
 
-template <typename T, int V>
-cudaError_t launch_segment_sum(const void* vals, const int32_t* order,
-                               const int32_t* offsets, void* out,
-                               long long rows, long long edges, long long c,
-                               cudaStream_t stream) {
-  const long long lanes = c / V;
-  const long long total = rows * lanes;
-  if (total == 0) return cudaSuccess;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  if (edges * c < (1LL << 31) && rows * c < (1LL << 31)) {
-    segment_sum_kernel<T, V, uint32_t><<<(unsigned)blocks, kThreads, 0,
-                                         stream>>>(
-        (const T*)vals, order, offsets, (T*)out, (uint32_t)lanes,
-        (uint32_t)c, (uint32_t)total);
-  } else {
-    segment_sum_kernel<T, V, uint64_t><<<(unsigned)blocks, kThreads, 0,
-                                         stream>>>(
-        (const T*)vals, order, offsets, (T*)out, (uint64_t)lanes,
-        (uint64_t)c, (uint64_t)total);
-  }
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_segment_sum(int v, const void* vals,
-                                 const int32_t* order, const int32_t* offsets,
-                                 void* out, long long rows, long long edges,
-                                 long long c, cudaStream_t stream) {
-  switch (v) {
-    case 1: return launch_segment_sum<T, 1>(vals, order, offsets, out, rows, edges, c, stream);
-    case 2: return launch_segment_sum<T, 2>(vals, order, offsets, out, rows, edges, c, stream);
-    case 4: return launch_segment_sum<T, 4>(vals, order, offsets, out, rows, edges, c, stream);
-    case 8:
-      if constexpr (sizeof(T) == 2)
-        return launch_segment_sum<T, 8>(vals, order, offsets, out, rows, edges, c, stream);
-      return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // values (b, n, row_bytes) bytes, idx (b, n, k) int32 -> out (b, n, k,
@@ -219,6 +102,9 @@ extern "C" int neighbor_gather_rows(const void* values, const int32_t* idx,
   return (int)err;
 }
 
+// kernel C's instance of the segment sum (the tag of segment_sum.cuh)
+struct graph_targets;
+
 // vals (edges, c) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1) with edges =
 // b*n*k; order (edges,) int32 edge ids sorted by target; offsets (rows + 1,)
 // int32 with rows = b*n -> out (rows, c) in the input dtype, every row
@@ -231,9 +117,9 @@ extern "C" int neighbor_segment_sum(const void* vals, const int32_t* order,
                                     int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = is_bf16 ? dispatch_segment_sum<uint16_t>(vec, vals, order, offsets,
-                                                 out, rows, edges, c, stream)
-                : dispatch_segment_sum<float>(vec, vals, order, offsets, out,
-                                              rows, edges, c, stream);
+  err = is_bf16 ? segsum::dispatch<graph_targets, uint16_t, uint16_t, false>(
+                      vec, vals, order, offsets, out, rows, edges, c, stream)
+                : segsum::dispatch<graph_targets, float, float, false>(
+                      vec, vals, order, offsets, out, rows, edges, c, stream);
   return (int)err;
 }

@@ -17,36 +17,44 @@
 // load, and the transpose an indexed add.  A position outside [0, P) reads
 // 0 and is dropped by the scatter, as a one-hot row without a match was.
 //
-// What bounds them on the H100: memory, at well under 1 FLOP/byte.  Each
-// patch site is read by ET / P (2-4) edges of its block, so the design
-// stages the block's (P, C_tile) patch tile -- or, for the scatter, a
-// (P, C_tile) f32 accumulator -- in shared memory: device memory then sees
-// every patch and output element once, and the scatter needs no global
-// atomics (one CTA owns its block's sums; shared-memory f32 atomics order
-// the adds within the block only).  One CTA per (batch, block, C tile);
-// C is tiled so that a tile fits the shared-memory budget the wrapper
-// chooses (above 48 KB through cudaFuncSetAttribute).  Every access moves
-// a vector of V channels (up to 16 bytes; the wrapper picks the widest V
-// that divides C), and threads walk the tile row-major, so each warp's
-// accesses to the streamed side are contiguous and wide: with one 2-byte
-// element per access the first version of these kernels was bound by
-// memory latency, not bandwidth.  The scatter's lanes add their V channels
-// in a lane-rotated order: in channel order, a warp's atomics fell in 4 of
-// the 32 shared-memory banks (2x slower, measured on an H100).
+// What bounds them on the H100: memory, at well under 1 FLOP/byte.
+//
+// Gather design: each patch site is read by ET / P (2-4) edges of its
+// block, so one CTA per (batch, block, C tile) stages the block's (P,
+// C_tile) patch tile in shared memory; device memory then sees every patch
+// and output element once.  C is tiled so that a tile fits the
+// shared-memory budget the wrapper chooses (above 48 KB through
+// cudaFuncSetAttribute).  Every access moves a vector of V channels (up to
+// 16 bytes; the wrapper picks the widest V that divides C), and threads
+// walk the tile row-major, so each warp's accesses to the streamed side
+// are contiguous and wide: with one 2-byte element per access the first
+// version of these kernels was bound by memory latency, not bandwidth.
+//
+// Scatter design: the segment sum of segment_sum.cuh over the step's block
+// plan (ops/kernels/block_kernels.py : block_plan): the flat edge ids
+// blk*ET + e (blk = b*NB + n) sorted by patch site blk*P + pos, ties by
+// ascending edge id, and each site's offsets.  Each (block, site) row of
+// the f32 output is owned by C / V threads that sum its edges in plan
+// order in f32 registers and store the row once: no atomics, no zero-fill,
+// no shared-memory accumulator, and no C tiling (a row's edges are read
+// once whatever C is).  A position outside [0, P) has no site and is
+// dropped, as a one-hot row without a match was.
 //
 // Precision: the gathers are exact copies in the input dtype (the Pallas
 // kernels' f32 output of bf16 operands held bf16 values exactly, and every
 // caller cast it back to the compute dtype at once).  `round_bf16` is the
 // Pallas `fast` mode of F/G: f32 operands rounded to bf16 (round to nearest
 // even, as jnp.astype and torch's .to(bfloat16)) before the copy or the
-// add.  The scatters accumulate in f32; the order of the shared-memory
-// atomics varies from run to run, so a sum agrees with a sequential f32
-// sum to ~1e-7 of the sum of |terms| (held to 1e-5 of it).
+// add (__float2bfloat16_rn, in-kernel).  The scatters accumulate in f32 in
+// ascending edge order, the order of the plain versions' index_add_ on the
+// CPU: bit-equal to them, and identical from launch to launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "segment_sum.cuh"
 
 namespace {
 
@@ -60,8 +68,6 @@ struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
@@ -106,57 +112,6 @@ select_gather_kernel(const T* __restrict__ patches,
   }
 }
 
-template <typename T, int V, bool kRound>
-__global__ void __launch_bounds__(kThreads)
-select_scatter_kernel(const T* __restrict__ vals,
-                      const int32_t* __restrict__ pos,
-                      float* __restrict__ out, int p, int et, int c, int ct) {
-  typedef Vec<T, V> U;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);
-  const long long blk = blockIdx.x;
-  const int c0 = blockIdx.y * ct;
-  const int cwe = min(ct, c - c0);             // channels per tile row
-  const int cw = cwe / V;                      // vectors per tile row
-  const int cu = c / V;
-  for (int i = threadIdx.x; i < p * cwe; i += blockDim.x) acc[i] = 0.0f;
-  __syncthreads();
-  const int32_t* pp = pos + blk * et;
-  const U* src = reinterpret_cast<const U*>(vals + blk * et * (long long)c + c0);
-  const int rot = threadIdx.x & (V - 1);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < et * cw; i += blockDim.x) {
-    const int e = i / cw;
-    const int j = i - e * cw;
-    const int q = __ldg(pp + e);
-    if (q < 0 || q >= p) continue;
-    const U u = src[(long long)e * cu + j];
-    float xs[V];
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      xs[k] = to_f32(u.v[k]);
-      if constexpr (kRound) xs[k] = round_bf16(xs[k]);
-    }
-    // lane-rotated order: at each step neighbouring lanes add to different
-    // channels of their vectors, so their atomics fall in different banks
-    float* a = acc + q * cwe + j * V;
-#pragma unroll
-    for (int k = 0; k < V; ++k) {
-      const int kk = (k + rot) & (V - 1);
-      float x = xs[0];
-#pragma unroll
-      for (int m = 1; m < V; ++m) x = (m == kk) ? xs[m] : x;
-      atomicAdd(a + kk, x);
-    }
-  }
-  __syncthreads();
-  float* dst = out + blk * p * (long long)c + c0;
-  for (int i = threadIdx.x; i < p * cwe; i += blockDim.x) {
-    const int r = i / cwe;
-    dst[(long long)r * c + (i - r * cwe)] = acc[i];
-  }
-}
-
 struct Shape {
   long long bnb;   // batch * blocks
   int p, et, c;    // patch sites, edges per block, channels
@@ -178,21 +133,6 @@ cudaError_t launch_gather(const void* patches, const int32_t* pos, void* out,
   return cudaGetLastError();
 }
 
-template <typename T, int V, bool kRound>
-cudaError_t launch_scatter(const void* vals, const int32_t* pos, float* out,
-                           const Shape& s, cudaStream_t stream) {
-  if (s.bnb == 0 || s.c == 0) return cudaSuccess;
-  const size_t smem = (size_t)s.p * s.ct * sizeof(float);
-  auto kernel = select_scatter_kernel<T, V, kRound>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)s.bnb, (unsigned)((s.c + s.ct - 1) / s.ct));
-  kernel<<<grid, kThreads, smem, stream>>>((const T*)vals, pos, out, s.p,
-                                           s.et, s.c, s.ct);
-  return cudaGetLastError();
-}
-
 // the vector widths: 1, 2, 4 (f32 and bf16) and 8 (bf16), 16 bytes at most
 template <typename T, bool kRound>
 cudaError_t gather_vec(int vec, const void* patches, const int32_t* pos,
@@ -204,22 +144,6 @@ cudaError_t gather_vec(int vec, const void* patches, const int32_t* pos,
     case 8:
       if constexpr (sizeof(T) == 2) {
         return launch_gather<T, 8, kRound>(patches, pos, out, s, stream);
-      }
-      return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, bool kRound>
-cudaError_t scatter_vec(int vec, const void* vals, const int32_t* pos,
-                        float* out, const Shape& s, cudaStream_t stream) {
-  switch (vec) {
-    case 1: return launch_scatter<T, 1, kRound>(vals, pos, out, s, stream);
-    case 2: return launch_scatter<T, 2, kRound>(vals, pos, out, s, stream);
-    case 4: return launch_scatter<T, 4, kRound>(vals, pos, out, s, stream);
-    case 8:
-      if constexpr (sizeof(T) == 2) {
-        return launch_scatter<T, 8, kRound>(vals, pos, out, s, stream);
       }
       return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
@@ -251,22 +175,32 @@ extern "C" int block_select_gather(const void* patches, const int32_t* pos,
   return (int)err;
 }
 
-// vals (bnb, et, c) f32 or bf16, pos (bnb, et) int32 -> out (bnb, p, c) f32
-// per-block sums (every element written).  ct, vec and round_bf16 as above.
-extern "C" int block_select_scatter(const void* vals, const int32_t* pos,
-                                    float* out, long long bnb, int p, int et,
-                                    int c, int ct, int vec, int in_bf16,
+// kernels E and G's instance of the segment sum (the tag of segment_sum.cuh)
+struct block_sites;
+
+// vals (edges, c) f32 (in_bf16 = 0) or bf16 (in_bf16 = 1) with edges =
+// bnb*et; order (edges,) int32 edge ids sorted by patch site; offsets
+// (rows + 1,) int32 with rows = bnb*p -> out (rows, c) f32 per-site sums,
+// every row written.  vec (elements per access, 1/2/4, or 8 for bf16)
+// divides c and the alignment of vals and out; round_bf16 rounds f32 input
+// to bf16 before the add.  Returns cudaGetLastError() after the launch.
+extern "C" int block_select_scatter(const void* vals, const int32_t* order,
+                                    const int32_t* offsets, float* out,
+                                    long long rows, long long edges,
+                                    long long c, int vec, int in_bf16,
                                     int round_bf16, int device,
                                     cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const Shape s{bnb, p, et, c, ct};
   if (in_bf16) {
-    err = scatter_vec<bf16, false>(vec, vals, pos, out, s, stream);
+    err = segsum::dispatch<block_sites, uint16_t, float, false>(
+        vec, vals, order, offsets, out, rows, edges, c, stream);
   } else if (round_bf16) {
-    err = scatter_vec<float, true>(vec, vals, pos, out, s, stream);
+    err = segsum::dispatch<block_sites, float, float, true>(
+        vec, vals, order, offsets, out, rows, edges, c, stream);
   } else {
-    err = scatter_vec<float, false>(vec, vals, pos, out, s, stream);
+    err = segsum::dispatch<block_sites, float, float, false>(
+        vec, vals, order, offsets, out, rows, edges, c, stream);
   }
   return (int)err;
 }

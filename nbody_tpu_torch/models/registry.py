@@ -59,8 +59,9 @@ def _make_masks(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
     int8/int4 route) as _make_masks and Trainer._log_effective_impl do in
     JAX (registry.py:218-301).
 
-    masks = per-edge patch positions (block_positions) or int8 / packed
-    int4 one-hot masks (block_masks), self slot dropped, with lattice =
+    masks = the BlockPlan of per-edge patch positions (block_index_plan,
+    built here once per forward) or int8 / packed int4 one-hot masks
+    (block_masks), self slot dropped, with lattice =
     (cells, window, core, True) select the masked routes; (None, (cells,
     window)) the block route; (None, None) the direct kernels B/C.  The
     mask kernels select in bf16, so exact-f32 mode downgrades ``index``,
@@ -89,8 +90,8 @@ def _make_masks(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
         lat = (cells, cfg.knn_window, core, True)
         if req == "index":
             record.update(impl="masked", core=list(core), mask_dtype="index")
-            return blocked.block_positions(idx, cells, cfg.knn_window, core=core,
-                                           drop_self_slot0=True), lat
+            return blocked.block_index_plan(idx, cells, cfg.knn_window,
+                                            core=core, drop_self_slot0=True), lat
         if b * n * (k - 1) * blocked.patch_size(cells, cfg.knn_window, core) \
                 <= MASKED_BYTES_CAP:
             masks = blocked.block_masks(

@@ -14,8 +14,8 @@ with a mean over K.  The gather and scatter are the port's CUDA kernels
 (ops/banded.py picks the route from ``lattice`` / ``masks``); the weight
 products are plain torch matmuls, as they were plain XLA dots in JAX.
 
-On the masked routes (``masks`` = per-edge patch positions, or int8 /
-packed int4 one-hot masks) the network keeps edge activations BLOCK-MAJOR
+On the masked routes (``masks`` = the BlockPlan of per-edge patch
+positions, or int8 / packed int4 one-hot masks) the network keeps edge activations BLOCK-MAJOR
 (b, NB, R, K, C) between layers, as _shiftinv_network_blocks does in JAX:
 edges enter and leave the cube layout once.  The velocity model (shiftinv_vel) adds node velocities
 to the edge features and two learnable output scalars.
@@ -31,8 +31,8 @@ from nbody_tpu_torch import config as C
 from nbody_tpu_torch.models.base import (LayerParams, ShiftInvVelParams,
                                          init_network_params)
 from nbody_tpu_torch.ops import blocked
-from nbody_tpu_torch.ops.banded import (graph_plan, is_direct, neighbor_counts,
-                                        neighbor_gather, neighbor_segment_mean)
+from nbody_tpu_torch.ops.banded import (neighbor_counts, neighbor_gather,
+                                        neighbor_segment_mean, route_plan)
 from nbody_tpu_torch.ops.graph_features import (edge_features_with_nodes,
                                                 edge_features_za)
 
@@ -59,8 +59,8 @@ def shift_inv_layer(h: torch.Tensor, idx: torch.Tensor,
                     lattice=None, masks=None, plan=None) -> torch.Tensor:
     """One 4-op layer (shiftinv.py:45-105).  h (b, N, K, C) edges, idx
     (b, N, K).  counts: in-degrees shared by every layer; plan: the
-    direct route's GraphPlan, likewise shared.  Returns (b, N, K, q), or
-    (b, N, q) if is_last."""
+    direct route's GraphPlan or the block route's BlockPlan, likewise
+    shared.  Returns (b, N, K, q), or (b, N, q) if is_last."""
     w = layer_params["W"]          # (4, C, q)
     bias = layer_params["B"][0]    # (q,)
     c_in, q = w.shape[1], w.shape[2]
@@ -94,14 +94,15 @@ def shift_inv_layer(h: torch.Tensor, idx: torch.Tensor,
 
 def shiftinv_network(params: List[Dict[str, torch.Tensor]], edges: torch.Tensor,
                      idx: torch.Tensor, activation: Callable = torch.relu,
-                     lattice=None, masks=None) -> torch.Tensor:
+                     lattice=None, masks=None, plan=None) -> torch.Tensor:
     """Layer stack (reference network_func_shift_inv_za, graph.py:463-476).
-    On the direct route the graph plan (idx sorted by target) is built once
-    here and serves every layer's scatters, forward and backward; the
-    in-degree counts, in the edge dtype, are read off it (other routes
-    scatter ones), once for all layers."""
+    The step's plan (ops/banded.route_plan, built here when not given) serves
+    every layer's scatters and, on the block route, gathers, forward and
+    backward; the in-degree counts, in the edge dtype, are read off it,
+    once for all layers."""
     h = edges
-    plan = graph_plan(idx) if is_direct(idx.shape[1], lattice, masks) else None
+    if plan is None:
+        plan = route_plan(idx, lattice, masks)
     counts = neighbor_counts(idx, edges.dtype, lattice, masks, plan)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
@@ -159,11 +160,8 @@ def _shiftinv_network_blocks(params, edges: torch.Tensor, masks, lattice,
     core = blocked.lattice_core(lattice)
     self_free = blocked.lattice_self_free(lattice)
     hB = blocked.edges_cube_to_blocks(edges, cells, core=core)
-    with torch.no_grad():
-        ones = torch.ones(hB.shape[:4] + (1,), dtype=edges.dtype,
-                          device=edges.device)
-        counts = blocked.masked_scatter_add_blocks(
-            ones, masks, cells, window, core=core, self_slot0=self_free)[..., 0]
+    counts = blocked.masked_counts(masks, cells, window, core, self_free,
+                                   edges.dtype)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
         hB = _shift_inv_layer_blocks(hB, layer_params, masks, cells, window,
@@ -173,11 +171,12 @@ def _shiftinv_network_blocks(params, edges: torch.Tensor, masks, lattice,
     return blocked.nodes_blocks_to_cube(hB, cells, core=core)   # (b, N, q)
 
 
-def _network(params, edges, idx, activation, lattice, masks):
+def _network(params, edges, idx, activation, lattice, masks, plan):
     if masks is not None and lattice is not None:
         return _shiftinv_network_blocks(params, edges, masks, lattice,
                                         activation)
-    return shiftinv_network(params, edges, idx, activation, lattice, masks)
+    return shiftinv_network(params, edges, idx, activation, lattice, masks,
+                            plan)
 
 
 def shiftinv_model(params: List[Dict[str, torch.Tensor]], pos: torch.Tensor,
@@ -186,9 +185,11 @@ def shiftinv_model(params: List[Dict[str, torch.Tensor]], pos: torch.Tensor,
                    lattice=None, masks=None) -> torch.Tensor:
     """Featurize + network (reference model_func_shift_inv_za).  pos
     (b, N, 3) raw positions (grid + ZA), za_disp (b, N, 3), idx (b, N, K)
-    with self at slot 0 -> (b, N, q)."""
-    edges = edge_features_za(pos, idx, za_disp, box, lattice, masks)
-    return _network(params, edges, idx, activation, lattice, masks)
+    with self at slot 0 -> (b, N, q).  The step's plan is built once and
+    serves the features' gather and the network."""
+    plan = route_plan(idx, lattice, masks)
+    edges = edge_features_za(pos, idx, za_disp, box, lattice, masks, plan)
+    return _network(params, edges, idx, activation, lattice, masks, plan)
 
 
 def shiftinv_vel_model(params, pos: torch.Tensor, za_disp: torch.Tensor,
@@ -199,9 +200,11 @@ def shiftinv_vel_model(params, pos: torch.Tensor, za_disp: torch.Tensor,
     "T": (2,)}.  Edge features [rel pos with ZA on the self-edge (3), vel
     at row (3), vel at col (3)]; output (b, N, 6): displacement and
     velocity residuals scaled by T[0] and T[1]."""
+    plan = route_plan(idx, lattice, masks)
     edges = edge_features_with_nodes(pos, idx, vel, box, za_disp=za_disp,
-                                     lattice=lattice, masks=masks)
-    net = _network(params["layers"], edges, idx, activation, lattice, masks)
+                                     lattice=lattice, masks=masks, plan=plan)
+    net = _network(params["layers"], edges, idx, activation, lattice, masks,
+                   plan)
     t = params["T"]
     scale = torch.cat([t[0].expand(3), t[1].expand(net.shape[-1] - 3)])
     return net * scale

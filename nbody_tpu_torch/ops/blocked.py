@@ -12,6 +12,8 @@ against the patch by a per-edge position in [0, P):
                                     the circularly padded cube (one copy);
   edge_block_positions              each edge's neighbor as a position in
                                     its block's patch (integer arithmetic);
+  block_index_plan                  the positions with the edges sorted by
+                                    patch site (a BlockPlan, once per step);
   block_masks                       the same positions as one-hot
                                     (ET, P) masks, int8 or packed int4;
   kernels D/E (ops/kernels/idx_kernels.py, the index route of the masked
@@ -25,10 +27,13 @@ against the patch by a per-edge position in [0, P):
 Requires N == cells^3 in grid order and |offset| <= window per axis, which
 the lattice kNN guarantees.  The core shape travels as an argument; the
 JAX module's default cores are the two constants below (its set_core
-globals are not ported).  The masked ops take either positions (the index
-route) or integer masks (the int8/int4 route), as in JAX; the bf16/f32
-one-hot masks of JAX's einsum route are built here only as kernel J's
-input (the route itself runs the direct kernels in the port).
+globals are not ported).  The masked ops take either the index route's
+BlockPlan (its positions, where JAX takes the positions themselves) or
+integer masks (the int8/int4 route); the bf16/f32 one-hot masks of JAX's
+einsum route are built here only as kernel J's input (the route itself
+runs the direct kernels in the port).  The in-degree counts of the index
+and block routes are read off the plan (``plan_counts``), with no kernel
+launch.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Sequence, Tuple
 import torch
 
 from nbody_tpu_torch.ops.kernels import block_kernels as BK
+from nbody_tpu_torch.ops.kernels.block_kernels import BlockPlan
 from nbody_tpu_torch.ops.kernels.idx_kernels import idx_dot_gather, idx_dot_scatter
 from nbody_tpu_torch.ops.kernels.mask_kernels import (mask_dot_gather,
                                                       mask_dot_scatter)
@@ -247,6 +253,30 @@ def block_positions(idx: torch.Tensor, cells: int, window: int,
 
 
 @torch.no_grad()
+def block_index_plan(idx: torch.Tensor, cells: int, window: int,
+                     core: Sequence[int] = MASKED_CORE,
+                     drop_self_slot0: bool = False) -> BlockPlan:
+    """(B, N, K) lattice-kNN ids -> the BlockPlan of their block_positions:
+    the positions, and the edges sorted by patch site for the scatters.
+    Built once per step and shared by every selection of the step,
+    forward and backward."""
+    return BK.block_plan(block_positions(idx, cells, window, core,
+                                         drop_self_slot0),
+                         patch_size(cells, window, core))
+
+
+@torch.no_grad()
+def plan_counts(plan: BlockPlan, cells: int, window: int, core: Sequence[int],
+                self_slot0: bool = False, dtype=torch.float32) -> torch.Tensor:
+    """In-degree of every cube node (B, N) in `dtype`, read off the plan:
+    the per-site degrees folded back into the cube in f32, plus the self
+    slot -- the width-1 scatter of ones, without a kernel launch."""
+    deg = plan.site_degree().to(torch.float32)[..., None]
+    out = patches_fold(deg, cells, window, core).to(dtype)[..., 0]
+    return out + 1 if self_slot0 else out
+
+
+@torch.no_grad()
 def block_masks(idx: torch.Tensor, cells: int, window: int,
                 dtype=torch.int8, core: Sequence[int] = MASKED_CORE,
                 drop_self_slot0: bool = False) -> torch.Tensor:
@@ -277,37 +307,40 @@ def block_masks(idx: torch.Tensor, cells: int, window: int,
     return out.scatter_(3, at[..., None], valid[..., None].to(dtype))
 
 
-def _mask_contract_gather(masks: torch.Tensor,
-                          patches: torch.Tensor) -> torch.Tensor:
+def _edges_per_block(masks) -> int:
+    return (masks.pos if isinstance(masks, BlockPlan) else masks).shape[2]
+
+
+def _mask_contract_gather(masks, patches: torch.Tensor) -> torch.Tensor:
     """(B, NB, P, C) patches -> (B, NB, ET, C) edges through the route's
-    masks: (B, NB, ET) int32 positions run kernel D (bf16 out), int8 or
+    masks: a BlockPlan runs kernel D on its positions (bf16 out), int8 or
     packed int4 (B, NB, ET, P[/2]) masks kernel H (f32 out)."""
-    if masks.dim() == 3:
+    if isinstance(masks, BlockPlan):
         return idx_dot_gather(masks, patches)
     return mask_dot_gather(masks, patches)
 
 
-def _mask_contract_scatter(masks: torch.Tensor, edges: torch.Tensor,
+def _mask_contract_scatter(masks, edges: torch.Tensor,
                            p_size: int) -> torch.Tensor:
     """The transpose: (B, NB, ET, C) -> (B, NB, P, C) f32 per-block sums
-    (kernel E for positions, I for masks; p_size = P, which the masks
+    (kernel E over a BlockPlan, I for masks; p_size = P, which the masks
     carry themselves)."""
-    if masks.dim() == 3:
+    if isinstance(masks, BlockPlan):
         return idx_dot_scatter(masks, edges, p_size)
     return mask_dot_scatter(masks, edges)
 
 
-def masked_gather(values: torch.Tensor, masks: torch.Tensor, cells: int,
+def masked_gather(values: torch.Tensor, masks, cells: int,
                   window: int, core: Sequence[int] = MASKED_CORE,
                   self_slot0: bool = False) -> torch.Tensor:
-    """values (B, N, C), positions from block_positions or masks from
+    """values (B, N, C), a BlockPlan from block_index_plan or masks from
     block_masks -> (B, N, K, C) in values' dtype (kernel D or H; the
     selection runs in bf16).  self_slot0: slot 0 of the output is values
     itself."""
     b, n, c = values.shape
     bx, by, bz = core
     r = bx * by * bz
-    k = masks.shape[2] // r
+    k = _edges_per_block(masks) // r
     patches = block_patches(values, cells, window, core)   # (B, NB, P, C)
     out = _mask_contract_gather(masks, patches)
     out = out.reshape(b, -1, r, k * c)
@@ -317,7 +350,7 @@ def masked_gather(values: torch.Tensor, masks: torch.Tensor, cells: int,
     return out
 
 
-def masked_scatter_add(vals: torch.Tensor, masks: torch.Tensor, cells: int,
+def masked_scatter_add(vals: torch.Tensor, masks, cells: int,
                        window: int, core: Sequence[int] = MASKED_CORE,
                        self_slot0: bool = False) -> torch.Tensor:
     """vals (B, N, K, C) -> (B, N, C) sums by target id (kernel E or I,
@@ -339,7 +372,7 @@ def masked_scatter_add(vals: torch.Tensor, masks: torch.Tensor, cells: int,
     return out
 
 
-def masked_gather_blocks(values: torch.Tensor, masks: torch.Tensor, cells: int,
+def masked_gather_blocks(values: torch.Tensor, masks, cells: int,
                          window: int, core: Sequence[int] = MASKED_CORE,
                          self_slot0: bool = False) -> torch.Tensor:
     """Cube node field (B, N, C) -> BLOCK-MAJOR edges (B, NB, R, K, C), for
@@ -348,7 +381,7 @@ def masked_gather_blocks(values: torch.Tensor, masks: torch.Tensor, cells: int,
     b, _, c = values.shape
     bx, by, bz = core
     r = bx * by * bz
-    k = masks.shape[2] // r
+    k = _edges_per_block(masks) // r
     patches = block_patches(values, cells, window, core)
     out = _mask_contract_gather(masks, patches).reshape(b, -1, r, k, c).to(
         values.dtype)
@@ -358,7 +391,7 @@ def masked_gather_blocks(values: torch.Tensor, masks: torch.Tensor, cells: int,
     return out
 
 
-def masked_scatter_add_blocks(vals: torch.Tensor, masks: torch.Tensor,
+def masked_scatter_add_blocks(vals: torch.Tensor, masks,
                               cells: int, window: int,
                               core: Sequence[int] = MASKED_CORE,
                               self_slot0: bool = False) -> torch.Tensor:
@@ -376,6 +409,21 @@ def masked_scatter_add_blocks(vals: torch.Tensor, masks: torch.Tensor,
     return out
 
 
+@torch.no_grad()
+def masked_counts(masks, cells: int, window: int,
+                  core: Sequence[int] = MASKED_CORE, self_slot0: bool = False,
+                  dtype=torch.float32) -> torch.Tensor:
+    """In-degree (B, N) of every cube node on a masked route, in `dtype`:
+    off the plan (plan_counts) on the index route, a width-1 scatter of
+    ones through kernel I on the int8/int4 route."""
+    if isinstance(masks, BlockPlan):
+        return plan_counts(masks, cells, window, core, self_slot0, dtype)
+    ones = torch.ones(masks.shape[:3] + (1,), dtype=dtype, device=masks.device)
+    acc = _mask_contract_scatter(masks, ones, patch_size(cells, window, core))
+    out = patches_fold(acc, cells, window, core).to(dtype)[..., 0]
+    return out + 1 if self_slot0 else out
+
+
 def edges_cube_to_blocks(edges: torch.Tensor, cells: int,
                          core: Sequence[int] = MASKED_CORE) -> torch.Tensor:
     """(B, N, K, C) -> (B, NB, R, K, C) block-major edge activations."""
@@ -391,32 +439,34 @@ def nodes_blocks_to_cube(x: torch.Tensor, cells: int,
     return blocks_to_cube(x, cells, core)
 
 
-def block_gather(values: torch.Tensor, idx: torch.Tensor, cells: int,
+def block_gather(values: torch.Tensor, plan: BlockPlan, cells: int,
                  window: int, fast: bool = True) -> torch.Tensor:
-    """values (B, N, C), idx (B, N, K) lattice-kNN ids -> (B, N, K, C) in
+    """values (B, N, C), the step's block_index_plan over CORE blocks
+    (every slot, the self edge included) -> (B, N, K, C) in
     values' dtype, over CORE blocks (kernel F; not differentiable:
     ops/banded pairs it with block_scatter_add)."""
     core = CORE
     b, n, c = values.shape
-    k = idx.shape[-1]
     bx, by, bz = core
+    r = bx * by * bz
+    k = plan.pos.shape[2] // r
     patches = block_patches(values, cells, window, core)
-    p = edge_block_positions(idx, cells, window, core)
-    out = BK.block_gather(p, patches, fast=fast)
-    out = out.reshape(b, -1, bx * by * bz, k * c)
+    out = BK.block_gather(plan.pos, patches, fast=fast)
+    out = out.reshape(b, -1, r, k * c)
     return blocks_to_cube(out, cells, core).reshape(b, n, k, c)
 
 
-def block_scatter_add(vals: torch.Tensor, idx: torch.Tensor, cells: int,
+def block_scatter_add(vals: torch.Tensor, plan: BlockPlan, cells: int,
                       window: int, fast: bool = True) -> torch.Tensor:
-    """vals (B, N, K, C), idx (B, N, K) -> (B, N, C) summed by target id,
-    in vals' dtype, over CORE blocks (kernel G, then the f32 fold)."""
+    """vals (B, N, K, C), the step's block_index_plan over CORE blocks
+    -> (B, N, C) summed
+    by target id, in vals' dtype, over CORE blocks (kernel G, then the f32
+    fold)."""
     core = CORE
     b, n, k, c = vals.shape
     bx, by, bz = core
-    p = edge_block_positions(idx, cells, window, core)
     v_blocks = cube_to_blocks(vals.reshape(b, n, k * c), cells, core)
     v_blocks = v_blocks.reshape(b, -1, bx * by * bz * k, c)
-    acc = BK.block_scatter(p, v_blocks, patch_size(cells, window, core),
+    acc = BK.block_scatter(plan, v_blocks, patch_size(cells, window, core),
                            fast=fast)
     return patches_fold(acc, cells, window, core).to(vals.dtype)

@@ -6,7 +6,8 @@ Edges are min-image relative neighbor positions with the ZA displacement on
 the self-edge (slot 0).  The reference's deviation fix (min-image offsets
 across the periodic boundary instead of box-size jumps) is kept.  Neighbor
 access goes through ops/banded.py, whose ``lattice`` / ``masks`` arguments
-pick the route (direct, block or masked index).
+pick the route (direct, block or masked index) and whose ``plan`` the
+model shares across a step.
 """
 
 from __future__ import annotations
@@ -46,7 +47,7 @@ def _origin_displacement(pos: torch.Tensor, cells: int, box: float) -> torch.Ten
 
 
 def neighbor_positions(pos: torch.Tensor, idx: torch.Tensor, box: float,
-                       lattice=None, masks=None) -> torch.Tensor:
+                       lattice=None, masks=None, plan=None) -> torch.Tensor:
     """Neighbor positions (b, N, K, 3) with bf16-safe magnitudes.
 
     Gathering absolute coordinates (up to `box`) in bf16 would quantize
@@ -60,16 +61,17 @@ def neighbor_positions(pos: torch.Tensor, idx: torch.Tensor, box: float,
         raise ValueError(f"neighbor_positions needs a full cells^3 cube, "
                          f"N={pos.shape[-2]}")
     nbr_disp = neighbor_gather(_origin_displacement(pos, cells, box), idx,
-                               lattice, masks)
+                               lattice, masks, plan)
     return lattice_site_positions(idx, cells, box, pos.dtype) + nbr_disp
 
 
 def edge_features_za(pos: torch.Tensor, idx: torch.Tensor,
                      za_disp: torch.Tensor, box: float, lattice=None,
-                     masks=None) -> torch.Tensor:
+                     masks=None, plan=None) -> torch.Tensor:
     """pos (b, N, 3) raw positions, idx (b, N, K) with idx[..., 0] == self,
-    za_disp (b, N, 3) -> edges (b, N, K, 3)."""
-    nbr = neighbor_positions(pos, idx, box, lattice, masks)
+    za_disp (b, N, 3) -> edges (b, N, K, 3).  plan: the step's plan of
+    ops/banded.route_plan, when the caller shares one."""
+    nbr = neighbor_positions(pos, idx, box, lattice, masks, plan)
     edges = min_image_diff(nbr, pos[:, :, None, :], box)
     # self-edge (slot 0) carries the ZA displacement (graph.py:338-343)
     return torch.cat([za_disp[:, :, None, :], edges[:, :, 1:, :]], dim=2)
@@ -78,7 +80,7 @@ def edge_features_za(pos: torch.Tensor, idx: torch.Tensor,
 def edge_features_with_nodes(pos: torch.Tensor, idx: torch.Tensor,
                              node_feats: torch.Tensor, box: float,
                              za_disp: Optional[torch.Tensor] = None,
-                             lattice=None, masks=None) -> torch.Tensor:
+                             lattice=None, masks=None, plan=None) -> torch.Tensor:
     """Edges + broadcast node features (graph_features.py:84-123):
     (b, N, K, 3 + 2*C_node) = [rel_pos, node[row], node[col]].  With
     za_disp, the self-edge of the rel_pos block carries the ZA
@@ -88,7 +90,7 @@ def edge_features_with_nodes(pos: torch.Tensor, idx: torch.Tensor,
     if cells:
         payload = torch.cat([_origin_displacement(pos, cells, box), node_feats],
                             dim=-1)
-        g = neighbor_gather(payload, idx, lattice, masks)
+        g = neighbor_gather(payload, idx, lattice, masks, plan)
         nbr = lattice_site_positions(idx, cells, box, pos.dtype) + g[..., :3]
         cols = g[..., 3:]
     else:

@@ -10,7 +10,8 @@ to bf16, unlike the Pallas ``fast`` mode).  The scatter is a segment sum
 over a ``GraphPlan`` -- the flat edge ids sorted by target, ties by
 ascending edge id, and each target's offsets -- built once per forward
 from idx (``graph_plan``, plain torch: index bookkeeping, not a kernel of
-the TPU package).  It accumulates in f32, as the Pallas kernel did, in
+the TPU package; its ``sorted_segments`` also builds kernels E and G's
+block plan).  It accumulates in f32, as the Pallas kernel did, in
 ascending edge order, and returns the input dtype: bit-equal to its plain
 version on the CPU, whose index_add_ adds in the same order.
 
@@ -25,7 +26,7 @@ CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -67,9 +68,23 @@ class GraphPlan(NamedTuple):
 
 
 @torch.no_grad()
+def sorted_segments(keys: torch.Tensor, n_targets: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plan of a segment sum: keys (E,) int32, the target of each flat
+    edge in [0, n_targets] (n_targets: no target) -> (order, offsets), a
+    stable sort of the keys (ties by ascending edge id) and a search of
+    each target's first edge.  Shared by graph_plan and the block plan
+    (ops/kernels/block_kernels.block_plan)."""
+    sorted_keys, order = torch.sort(keys, stable=True)
+    targets = torch.arange(n_targets + 1, dtype=torch.int32, device=keys.device)
+    offsets = torch.searchsorted(sorted_keys, targets, out_int32=True)
+    return order.to(torch.int32), offsets
+
+
+@torch.no_grad()
 def graph_plan(idx: torch.Tensor) -> GraphPlan:
-    """idx (B, N, K) int32 -> its GraphPlan: a stable sort of the int32
-    target keys b*N + idx and a search of each target's first edge."""
+    """idx (B, N, K) int32 -> its GraphPlan: sorted_segments of the int32
+    target keys b*N + idx."""
     b, n, k = idx.shape
     if idx.dtype != torch.int32:
         raise ValueError(f"graph_plan: idx must be int32, got {idx.dtype}")
@@ -78,10 +93,7 @@ def graph_plan(idx: torch.Tensor) -> GraphPlan:
     base = torch.arange(b, dtype=torch.int32, device=idx.device) * n
     valid = (idx >= 0) & (idx < n)
     keys = torch.where(valid, idx + base[:, None, None], b * n).reshape(-1)
-    sorted_keys, order = torch.sort(keys, stable=True)
-    targets = torch.arange(b * n + 1, dtype=torch.int32, device=idx.device)
-    offsets = torch.searchsorted(sorted_keys, targets, out_int32=True)
-    return GraphPlan(order.to(torch.int32), offsets)
+    return GraphPlan(*sorted_segments(keys, b * n))
 
 
 def _flat_targets(idx: torch.Tensor, n: int) -> torch.Tensor:
@@ -109,18 +121,27 @@ def scatter_add_plain(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return acc.reshape(b, n, c).to(vals.dtype)
 
 
+def plan_sum_plain(rows: torch.Tensor, order: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """The segment sum of a plan in plain PyTorch: rows (E, C), the plan's
+    edges in plan order index_add_-ed by target into (targets, C) f32 (f64
+    for f64 input) rows.  On the CPU index_add_ adds sequentially, so each
+    target's sum is taken in ascending edge order, as the kernels take it."""
+    acc_dt = torch.promote_types(rows.dtype, torch.float32)
+    degree = (offsets[1:] - offsets[:-1]).long()
+    targets = torch.repeat_interleave(
+        torch.arange(degree.numel(), device=rows.device), degree)
+    ids = order[:targets.numel()].long()
+    acc = torch.zeros((degree.numel(), rows.shape[1]), dtype=acc_dt,
+                      device=rows.device)
+    return acc.index_add_(0, targets, rows.index_select(0, ids).to(acc_dt))
+
+
 def segment_sum_plain(vals: torch.Tensor, plan: GraphPlan) -> torch.Tensor:
-    """Plain PyTorch version of kernel C: the plan's edges, in plan order,
-    index_add_-ed into an f32 (f64 for f64 input) accumulator by target,
+    """Plain PyTorch version of kernel C: plan_sum_plain over the plan,
     cast to the input dtype."""
     b, n, k, c = vals.shape
-    acc_dt = torch.promote_types(vals.dtype, torch.float32)
-    degree = (plan.offsets[1:] - plan.offsets[:-1]).long()
-    targets = torch.repeat_interleave(
-        torch.arange(b * n, device=vals.device), degree)
-    rows = plan.order[:targets.numel()].long()
-    acc = torch.zeros((b * n, c), dtype=acc_dt, device=vals.device)
-    acc.index_add_(0, targets, vals.reshape(-1, c).index_select(0, rows).to(acc_dt))
+    acc = plan_sum_plain(vals.reshape(-1, c), plan.order, plan.offsets)
     return acc.reshape(b, n, c).to(vals.dtype)
 
 
@@ -189,8 +210,7 @@ def neighbor_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lib = library()
     err = lib.neighbor_gather_rows(
         values.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, k, row_bytes,
-        unit, values.device.index,
-        torch.cuda.current_stream(values.device).cuda_stream)
+        unit, values.device.index, build.stream(values.device.index))
     build.check_launch(err, "neighbor_gather_rows")
     LAUNCHES["neighbor_gather"] += 1
     return out
@@ -211,7 +231,7 @@ def neighbor_segment_sum(vals: torch.Tensor, plan: GraphPlan) -> torch.Tensor:
         vals.data_ptr(), plan.order.data_ptr(), plan.offsets.data_ptr(),
         out.data_ptr(), b * n, b * n * k, c, vec,
         int(vals.dtype == torch.bfloat16), vals.device.index,
-        torch.cuda.current_stream(vals.device).cuda_stream)
+        build.stream(vals.device.index))
     build.check_launch(err, "neighbor_segment_sum")
     LAUNCHES["neighbor_segment_sum"] += 1
     return out

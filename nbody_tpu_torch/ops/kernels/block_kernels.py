@@ -1,5 +1,6 @@
 """Kernels F and G: the 3D-block gather and scatter (wrappers of
-csrc/block_kernels.cu), and the launch helpers kernels D and E share.
+csrc/block_kernels.cu), the block plan the scatters run over, and the
+launch helpers kernels D and E share.
 
 Replace nbody_tpu/ops/pallas/block_kernels.py : block_gather_pallas and
 block_scatter_pallas.  Per (batch, core block), with p (B, NB, ET) int32
@@ -11,12 +12,18 @@ bf16 operands held bf16 values exactly.
 ``fast`` is the Pallas switch: f32 operands are rounded to bf16 (round to
 nearest even) before the copy or the add; bf16 operands are unchanged, so
 fast mode is exact on bf16 input.  A position outside [0, P) reads 0 and
-is dropped.  The scatter accumulates in f32 in shared memory; the order of
-its atomics varies from run to run (tolerance in the .cu file's note).
+is dropped.
 
-On the H100 both are memory-bound; each CTA stages one block's patch tile
-(gather) or f32 accumulator (scatter) in shared memory, so device memory
-sees each element once and the scatter needs no global atomics.
+The scatters (E and G) are a segment sum over a ``BlockPlan`` -- the
+positions with the flat edge ids sorted by patch site, ties by ascending
+edge id, and each site's offsets -- built once per step (``block_plan``,
+plain torch: index bookkeeping, not a kernel of the TPU package).  They
+accumulate in f32 in ascending edge order: bit-equal to their plain
+versions on the CPU, whose index_add_ adds in the same order.
+
+On the H100 both are memory-bound; the gather's CTAs stage one block's
+patch tile in shared memory, the scatter's threads own output rows
+(design note in the .cu file).
 
 Each wrapper takes its plain PyTorch version only for a CPU tensor; for a
 CUDA tensor it launches its kernel or raises.
@@ -25,25 +32,28 @@ CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, NamedTuple
 
 import torch
 
 from nbody_tpu_torch.ops.kernels import build
+from nbody_tpu_torch.ops.kernels.banded_kernels import (plan_sum_plain,
+                                                        sorted_segments)
 
 # launches of the CUDA kernels in this process (reset by callers that count)
 LAUNCHES = {"block_gather": 0, "block_scatter": 0}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# shared memory one CTA stages.  Two gather CTAs fit an SM's 228 KB, whose
-# wider tiles beat a third CTA; the scatter, with a busier inner loop,
-# keeps three (both measured on an H100 at the 64^3 index shapes)
+# shared memory one gather CTA stages: two fit an SM's 228 KB, whose wider
+# tiles beat a third CTA (measured on an H100 at the 64^3 index shapes)
 GATHER_SMEM = 113 * 1024
-SCATTER_SMEM = 96 * 1024
+# per device: the largest shared memory one CTA may opt in to
+_MAX_SMEM: Dict[int, int] = {}
 _INT_MAX = 2 ** 31 - 1
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "block_select_gather": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "block_select_scatter": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "block_select_scatter": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P),
     "block_select_max_smem": (_I,),
 }
 
@@ -53,8 +63,48 @@ def library():
     return build.load("block_kernels", _SIGNATURES)
 
 
+class BlockPlan(NamedTuple):
+    """A step's per-edge patch positions and the edges sorted by patch
+    site, shared by every selection of the step (the per-block
+    counterpart of banded_kernels.GraphPlan).
+
+    pos:     (B, NB, ET) int32 position of each edge in its block's patch
+             of P sites (the gathers D and F read it).
+    order:   (B*NB*ET,) int32 flat edge ids blk*ET + e (blk = b*NB + n),
+             sorted by site key blk*P + pos, ties by ascending edge id;
+             edges whose position lies outside [0, P) come last, past
+             offsets[-1].
+    offsets: (B*NB*P + 1,) int32; site s's edges are order[offsets[s]:
+             offsets[s + 1]] (the scatters E and G run over them)."""
+    pos: torch.Tensor
+    order: torch.Tensor
+    offsets: torch.Tensor
+
+    def site_degree(self) -> torch.Tensor:
+        """(B, NB, P) int32 edges per patch site."""
+        b, nb, _ = self.pos.shape
+        return (self.offsets[1:] - self.offsets[:-1]).reshape(b, nb, -1)
+
+
+@torch.no_grad()
+def block_plan(pos: torch.Tensor, p_size: int) -> BlockPlan:
+    """pos (B, NB, ET) int32 -> its BlockPlan over patches of p_size
+    sites: sorted_segments of the int32 site keys blk*P + pos."""
+    b, nb, et = pos.shape
+    if pos.dtype != torch.int32:
+        raise ValueError(f"block_plan: positions must be int32, got {pos.dtype}")
+    if max(b * nb * et, b * nb * p_size) > _INT_MAX:
+        raise ValueError(f"block_plan: {b * nb * et} edges or "
+                         f"{b * nb * p_size} sites exceed int32 ids")
+    base = torch.arange(b * nb, dtype=torch.int32,
+                        device=pos.device).reshape(b, nb, 1) * p_size
+    valid = (pos >= 0) & (pos < p_size)
+    keys = torch.where(valid, pos + base, b * nb * p_size).reshape(-1)
+    return BlockPlan(pos, *sorted_segments(keys, b * nb * p_size))
+
+
 def c_tile(p: int, c: int, elem_bytes: int, budget: int) -> int:
-    """Channels per CTA: C split into the fewest equal tiles whose
+    """Channels per gather CTA: C split into the fewest equal tiles whose
     (P, tile) shared-memory array fits `budget` bytes (at least 1 channel)."""
     ct_max = max(1, budget // (p * elem_bytes))
     tiles = -(-c // ct_max)
@@ -75,17 +125,14 @@ def select_gather_plain(pos: torch.Tensor, patches: torch.Tensor) -> torch.Tenso
     return torch.where(valid[..., None], out, torch.zeros((), dtype=out.dtype))
 
 
-def select_scatter_plain(pos: torch.Tensor, vals: torch.Tensor,
-                         p_size: int) -> torch.Tensor:
-    """(B, NB, ET) x (B, NB, ET, C) -> (B, NB, P, C) sums by position in
-    f32 (f64 for f64 input); positions outside [0, P) are dropped."""
+def plan_scatter_plain(plan: BlockPlan, vals: torch.Tensor,
+                       p_size: int) -> torch.Tensor:
+    """(B, NB, ET, C) -> (B, NB, P, C) sums by patch site in f32 (f64 for
+    f64 input): plan_sum_plain over the plan's flat (B*NB*P, C) rows, in
+    ascending edge order; positions outside [0, P) are dropped."""
     b, nb, _, c = vals.shape
-    acc_dt = torch.promote_types(vals.dtype, torch.float32)
-    valid = (pos >= 0) & (pos < p_size)
-    ids = torch.where(valid, pos, p_size).long()     # row P: a sink, dropped
-    acc = torch.zeros((b, nb, p_size + 1, c), dtype=acc_dt, device=vals.device)
-    acc.scatter_add_(2, ids[..., None].expand(*ids.shape, c), vals.to(acc_dt))
-    return acc[:, :, :p_size]
+    return plan_sum_plain(vals.reshape(-1, c), plan.order,
+                          plan.offsets).reshape(b, nb, p_size, c)
 
 
 def _round_if(x: torch.Tensor, fast: bool) -> torch.Tensor:
@@ -101,15 +148,32 @@ def block_gather_plain(p: torch.Tensor, patches: torch.Tensor,
     return select_gather_plain(p, _round_if(patches, fast))
 
 
-def block_scatter_plain(p: torch.Tensor, vals: torch.Tensor, p_size: int,
+def block_scatter_plain(plan: BlockPlan, vals: torch.Tensor, p_size: int,
                         fast: bool = True) -> torch.Tensor:
     """Plain PyTorch version of kernel G."""
-    return select_scatter_plain(p, _round_if(vals, fast), p_size)
+    return plan_scatter_plain(plan, _round_if(vals, fast), p_size)
 
 
 # ---------------------------------------------------------------------------
 # CUDA launches (shared with kernels D and E, ops/kernels/idx_kernels.py)
 # ---------------------------------------------------------------------------
+
+def _check_devices(name: str, x: torch.Tensor, *others: torch.Tensor):
+    """x and `others` on one device, the CPU or a card; on a card, what the
+    kernels take (x float32 or bfloat16, every tensor contiguous)."""
+    dev = x.device
+    if any(t.device != dev for t in others):
+        raise ValueError(f"{name}: tensors on "
+                         f"{[str(t.device) for t in (x, *others)]}")
+    if dev.type == "cuda":
+        if x.dtype not in KERNEL_DTYPES:
+            raise ValueError(f"{name} kernel takes float32 or bfloat16, "
+                             f"got {x.dtype}")
+        if not all(t.is_contiguous() for t in (x, *others)):
+            raise ValueError(f"{name} kernel takes contiguous tensors")
+    elif dev.type != "cpu":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {dev}")
+
 
 def check_select(pos: torch.Tensor, x: torch.Tensor, name: str):
     """Shapes, types and devices of a (pos, patches|vals) pair; on CUDA
@@ -119,16 +183,24 @@ def check_select(pos: torch.Tensor, x: torch.Tensor, name: str):
                          f"operand {tuple(x.shape)}")
     if pos.dtype != torch.int32:
         raise ValueError(f"{name}: positions must be int32, got {pos.dtype}")
-    if x.device != pos.device:
-        raise ValueError(f"{name}: tensors on {x.device} and {pos.device}")
-    if x.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name} runs on cpu or cuda tensors, not {x.device}")
-    if x.device.type == "cuda":
-        if x.dtype not in KERNEL_DTYPES:
-            raise ValueError(f"{name} kernel takes float32 or bfloat16, "
-                             f"got {x.dtype}")
-        if not (x.is_contiguous() and pos.is_contiguous()):
-            raise ValueError(f"{name} kernel takes contiguous tensors")
+    _check_devices(name, x, pos)
+
+
+def check_plan(plan: BlockPlan, vals: torch.Tensor, p_size: int, name: str):
+    """The plan against vals (B, NB, ET, C) and p_size, as check_select
+    checks a (pos, vals) pair: a plan that does not fit raises."""
+    pos, order, offsets = plan
+    if vals.dim() != 4 or pos.shape != vals.shape[:3]:
+        raise ValueError(f"{name}: bad shapes pos {tuple(pos.shape)}, "
+                         f"operand {tuple(vals.shape)}")
+    b, nb, et, _ = vals.shape
+    if order.shape != (b * nb * et,) or offsets.shape != (b * nb * p_size + 1,):
+        raise ValueError(f"{name}: plan (pos {tuple(pos.shape)}, order "
+                         f"{tuple(order.shape)}, offsets {tuple(offsets.shape)}) "
+                         f"does not fit vals {tuple(vals.shape)} with P={p_size}")
+    if not pos.dtype == order.dtype == offsets.dtype == torch.int32:
+        raise ValueError(f"{name}: the plan's tensors must be int32")
+    _check_devices(name, vals, pos, order, offsets)
 
 
 def vector_width(c: int, elem_bytes: int, *ptrs: int) -> int:
@@ -142,11 +214,13 @@ def vector_width(c: int, elem_bytes: int, *ptrs: int) -> int:
 
 
 def _tiling(p: int, c: int, tile_elem: int, vec: int, budget: int,
-            device: torch.device, name: str) -> int:
+            device: int, name: str) -> int:
     """Channels per CTA: c_tile over vectors of `vec` channels, checked
     against the card's shared memory (tile elements of tile_elem bytes)."""
     ct = c_tile(p, c // vec, tile_elem * vec, budget) * vec
-    limit = library().block_select_max_smem(device.index)
+    limit = _MAX_SMEM.get(device)
+    if limit is None:
+        limit = _MAX_SMEM[device] = library().block_select_max_smem(device)
     if p * ct * tile_elem > limit:
         raise ValueError(f"{name}: a patch of {p} sites needs "
                          f"{p * ct * tile_elem} bytes of shared memory, "
@@ -165,31 +239,33 @@ def launch_gather(pos: torch.Tensor, patches: torch.Tensor, round_bf16: bool,
     b, nb, p, c = patches.shape
     et = pos.shape[2]
     _check_size(name, b * nb, p * c, et * c)
-    out = torch.empty((b, nb, et, c), dtype=patches.dtype, device=patches.device)
+    out = patches.new_empty((b, nb, et, c))
+    dev = patches.get_device()
     elem = patches.element_size()
     vec = vector_width(c, elem, patches.data_ptr(), out.data_ptr())
-    ct = _tiling(p, c, elem, vec, GATHER_SMEM, patches.device, name)
+    ct = _tiling(p, c, elem, vec, GATHER_SMEM, dev, name)
     err = library().block_select_gather(
         patches.data_ptr(), pos.data_ptr(), out.data_ptr(), b * nb, p, et, c,
-        ct, vec, int(patches.dtype == torch.bfloat16), int(round_bf16),
-        patches.device.index,
-        torch.cuda.current_stream(patches.device).cuda_stream)
+        ct, vec, int(patches.dtype == torch.bfloat16), int(round_bf16), dev,
+        build.stream(dev))
     build.check_launch(err, f"block_select_gather ({name})")
     return out
 
 
-def launch_scatter(pos: torch.Tensor, vals: torch.Tensor, p_size: int,
+def launch_scatter(plan: BlockPlan, vals: torch.Tensor, p_size: int,
                    round_bf16: bool, name: str) -> torch.Tensor:
-    """The scatter kernel on CUDA tensors -> (B, NB, P, C) f32."""
+    """The segment-sum kernel on CUDA tensors -> (B, NB, P, C) f32.  The
+    output is fresh (512-byte aligned) and its rows are C * 4 bytes, so
+    the vector width that fits vals fits it too."""
     b, nb, et, c = vals.shape
-    _check_size(name, b * nb, p_size * c, et * c)
-    out = torch.empty((b, nb, p_size, c), dtype=torch.float32, device=vals.device)
-    vec = vector_width(c, vals.element_size(), vals.data_ptr())
-    ct = _tiling(p_size, c, 4, vec, SCATTER_SMEM, vals.device, name)
+    out = vals.new_empty((b, nb, p_size, c), dtype=torch.float32)
+    dev = vals.get_device()
     err = library().block_select_scatter(
-        vals.data_ptr(), pos.data_ptr(), out.data_ptr(), b * nb, p_size, et, c,
-        ct, vec, int(vals.dtype == torch.bfloat16), int(round_bf16),
-        vals.device.index, torch.cuda.current_stream(vals.device).cuda_stream)
+        vals.data_ptr(), plan.order.data_ptr(), plan.offsets.data_ptr(),
+        out.data_ptr(), b * nb * p_size, b * nb * et, c,
+        vector_width(c, vals.element_size(), vals.data_ptr()),
+        int(vals.dtype == torch.bfloat16), int(round_bf16), dev,
+        build.stream(dev))
     build.check_launch(err, f"block_select_scatter ({name})")
     return out
 
@@ -211,14 +287,14 @@ def block_gather(p: torch.Tensor, patches: torch.Tensor,
     return out
 
 
-def block_scatter(p: torch.Tensor, vals: torch.Tensor, p_size: int,
+def block_scatter(plan: BlockPlan, vals: torch.Tensor, p_size: int,
                   fast: bool = True) -> torch.Tensor:
-    """p (B, NB, ET) int32, vals (B, NB, ET, C) -> per-block sums
-    (B, NB, P, C) f32 (p_size = P)."""
-    check_select(p, vals, "block_scatter")
+    """plan (block_plan of the (B, NB, ET) positions), vals (B, NB, ET, C)
+    -> per-block sums (B, NB, P, C) f32 (p_size = P)."""
+    check_plan(plan, vals, p_size, "block_scatter")
     if vals.device.type == "cpu":
-        return block_scatter_plain(p, vals, p_size, fast)
-    out = launch_scatter(p, vals, p_size,
+        return block_scatter_plain(plan, vals, p_size, fast)
+    out = launch_scatter(plan, vals, p_size,
                          fast and vals.dtype == torch.float32, "block_scatter")
     LAUNCHES["block_scatter"] += 1
     return out

@@ -3,15 +3,18 @@
 Each ``nbody_tpu_torch/csrc/<name>.cu`` has a plain ``extern "C"``
 interface.  At first use it is compiled with nvcc for Hopper
 (``sm_90a``) into ``build/nbody_tpu_torch/lib<name>-<hash>.so`` at the
-repository root and loaded with ctypes; the hash covers the source and the
-flags, so an edited source is rebuilt and a stale library is never loaded.
+repository root and loaded with ctypes; the hash covers the source, the
+headers of csrc/ and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.
 Nothing is compiled at import time: the CPU tests import every module and
 this machine class has no nvcc.
 
-The C entries take raw pointers and PyTorch's current stream and return
-``cudaGetLastError()`` after their launch; the Python wrappers raise when
-it is not 0 (a refused launch never runs, and a later synchronize would
-not report it).
+The C entries take raw pointers and PyTorch's current stream (``stream``)
+and return ``cudaGetLastError()`` after their launch; the Python wrappers
+raise when it is not 0 (a refused launch never runs, and a later
+synchronize would not report it).  A loaded library is returned without
+taking a lock: at the narrow widths a wrapper's host work outlasts its
+kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ import subprocess
 import threading
 import time
 from typing import Dict, Sequence
+
+import torch
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -62,10 +67,13 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """Content-addressed library path for csrc/<name>.cu."""
+    """Content-addressed library path for csrc/<name>.cu: the hash covers
+    the source and every header of csrc/ (a .cu file includes them)."""
     h = hashlib.sha256()
-    with open(source_path(name), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
@@ -90,6 +98,9 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
     argument types (``signatures``: entry -> ctypes types).  Every entry
     returns an int (a cudaError_t).  Libraries of different names may be
     built concurrently from several threads (one nvcc each)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         name_lock = _name_locks.setdefault(name, threading.Lock())
     with name_lock:
@@ -108,6 +119,13 @@ def load(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
         BUILD_INFO[name] = {"path": path, **info}
         _libs[name] = lib
         return lib
+
+
+def stream(device_index: int) -> int:
+    """The raw cudaStream_t of PyTorch's current stream on the device (what
+    torch.cuda.current_stream(...).cuda_stream gives, without building a
+    Stream object)."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check_launch(err: int, entry: str):

@@ -125,7 +125,7 @@ def fused_boundary_dot(masks: torch.Tensor, patches: torch.Tensor,
         f2.data_ptr(), act_out.data_ptr(), h1.data_ptr(), s.data_ptr(),
         b * nb, et, p, c, q, int(masks.dtype == bf), int(a.dtype == bf),
         int(w1.dtype == bf), int(patches.dtype == bf), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        build.stream(dev.index))
     build.check_launch(err, "fused_boundary")
     LAUNCHES["fused_boundary_dot"] += 1
     return act_out, h1, s

@@ -147,7 +147,7 @@ def _launch(masks: torch.Tensor, x: torch.Tensor, transpose: bool,
     err = library().mask_dot(
         masks.data_ptr(), x.data_ptr(), out.data_ptr(), b * nb, et, p, c,
         int(transpose), int(masks.dtype == torch.uint8), x.device.index,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        build.stream(x.device.index))
     build.check_launch(err, f"mask_dot ({name})")
     return out
 

@@ -89,8 +89,7 @@ def topk_min(d2: torch.Tensor, k: int) -> torch.Tensor:
                          "candidates per row")
     out = torch.empty((rows, k), dtype=torch.int32, device=d2.device)
     err = lib.topk_min_f32(d2.data_ptr(), out.data_ptr(), rows, m, k,
-                           d2.device.index,
-                           torch.cuda.current_stream(d2.device).cuda_stream)
+                           d2.device.index, build.stream(d2.device.index))
     build.check_launch(err, "topk_min_f32")
     LAUNCHES["topk_min"] += 1
     return out
@@ -174,8 +173,7 @@ def lattice_knn(pos: torch.Tensor, k: int, cells: int, window: int = 3,
                          "than a block may use")
     out = torch.empty((b, n, k), dtype=torch.int32, device=pos.device)
     err = lib.lattice_knn_f32(pos.data_ptr(), out.data_ptr(), b, cells, w, k,
-                              box, dev,
-                              torch.cuda.current_stream(pos.device).cuda_stream)
+                              box, dev, build.stream(dev))
     build.check_launch(err, "lattice_knn_f32")
     LAUNCHES["lattice_knn"] += 1
     return out

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's direct-route train steps, its graph build and
-its scatter on one CUDA card.
+"""Time the PyTorch port's train steps on each neighbor route, its graph
+build and its scatters on one CUDA card.
 
     python3 scripts/torch_step_profile.py [--root DIR] [--label NAME] [--profile]
                                           [--out_dir DIR]
@@ -9,10 +9,14 @@ Imports nbody_tpu_torch from DIR (default: the checkout holding this
 script), so that one command can measure two trees in turns, e.g. a parent
 commit unpacked with ``git archive`` and the working tree: parent, change,
 change, parent.  On synthetic cubes made from a fixed seed it measures:
-  * the train step of shiftinv at 32^3, batch 4, and of shiftinv_vel at
-    64^3, batch 1 (K 14, lattice window 2, bf16 compute, the direct
-    neighbor route): CUDA events, mean of 10 steps after 2 warm-up, and
-    the peak device memory of those steps;
+  * the train step of each route of ROUTES (K 14, lattice window 2, bf16
+    compute): shiftinv at 32^3 batch 4 on the direct, --impl block, int8
+    and int4 routes, shiftinv_vel at 64^3 batch 1 on the direct and
+    --mask_dtype index routes: CUDA events, mean of 10 steps after 2
+    warm-up, the peak device memory of those steps, and every kernel
+    launch of one step (the wrappers' LAUNCHES counters);
+  * on the index and block routes, the block plan's build where the tree
+    has one (blocked.block_index_plan);
   * the graph build (the model's knn_fn) and kernel A's own launch at 32^3
     b4: the fused lattice_knn where the tree has it, else topk_min on the
     precomputed distances;
@@ -23,9 +27,9 @@ change, parent.  On synthetic cubes made from a fixed seed it measures:
   * the bytes kernels B and C move in one 32^3 train step (each input read
     once, each output written once, summed over their launches) and the
     bound they give at 3.35 TB/s (H100 SXM);
-  * with --profile, torch.profiler over 3 steps of the 32^3 step: device
-    time per step by bucket of kernel names, kernels per step, busy time
-    and idle share.
+  * with --profile, torch.profiler over 3 steps of each route: device
+    time per step by bucket of kernel names (kernels D-I included),
+    kernels per step, busy time and idle share.
 Prints one JSON line, with the card's name and power limit, and writes it
 to <out_dir>/step_profile_<label>.json (default build/, which git
 ignores).  Fails without a CUDA card.
@@ -43,12 +47,29 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K, WINDOW = 14, 2
+# route -> (family, cells, batch, ModelConfig overrides, impl_record subset)
+ROUTES = {
+    "direct32": ("shiftinv", 32, 4, {}, {"impl": "direct"}),
+    "direct64": ("shiftinv_vel", 64, 1, {}, {"impl": "direct"}),
+    "index64": ("shiftinv_vel", 64, 1, {"mask_dtype": "index"},
+                {"impl": "masked", "mask_dtype": "index"}),
+    "block32": ("shiftinv", 32, 4, {"neighbor_impl": "block"}, {"impl": "block"}),
+    "int8_32": ("shiftinv", 32, 4, {"mask_dtype": "int8"},
+                {"impl": "masked", "mask_dtype": "int8"}),
+    "int4_32": ("shiftinv", 32, 4, {"mask_dtype": "int4"},
+                {"impl": "masked", "mask_dtype": "int4"}),
+}
 H100_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, NVIDIA's data sheet
 BUCKETS = (
     ("A lattice_knn", ("lattice_knn_kernel",)),
     ("A topk_min", ("topk_min_kernel",)),
     ("B gather", ("gather_rows_kernel",)),
+    # E/G: the shared-memory atomic form, or the segment sum's instance
+    # tagged block_sites (C's is tagged graph_targets)
+    ("E/G scatter", ("select_scatter_kernel", "segment_sum_kernel<block_sites")),
     ("C segment sum", ("segment_sum_kernel",)),
+    ("D/F gather", ("select_gather_kernel",)),
+    ("H/I mask dot", ("mask_dot_kernel",)),
     ("C atomic scatter", ("scatter_add_kernel",)),
     ("sort + search", ("adix", "sort", "Sort", "searchsorted")),
     ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "sm90", "cublas", "ampere")),
@@ -163,7 +184,10 @@ def main() -> int:
     from nbody_tpu_torch.data.dataset import features_from_raw, split_batch
     from nbody_tpu_torch.data.synthetic import synthetic_raw_cubes
     from nbody_tpu_torch.models.registry import build_model
+    from nbody_tpu_torch.ops import blocked
     from nbody_tpu_torch.ops.kernels import banded_kernels as B
+    from nbody_tpu_torch.ops.kernels import (block_kernels, idx_kernels,
+                                             mask_kernels)
     from nbody_tpu_torch.ops.kernels import topk_kernels as T
     from nbody_tpu_torch.train.trainer import make_optimizer, make_train_step
 
@@ -176,7 +200,9 @@ def main() -> int:
     result = {"label": args.label, "root": root, "device": torch.cuda.get_device_name(0),
               "nvidia_smi": smi, "torch": torch.__version__, "steps": {}}
 
-    for family, cells, batch in (("shiftinv", 32, 4), ("shiftinv_vel", 64, 1)):
+    counted = (T, B, idx_kernels, block_kernels, mask_kernels)
+    for route in ROUTES:
+        family, cells, batch, overrides, want = ROUTES[route]
         vel = family == "shiftinv_vel"
         x = torch.from_numpy(features_from_raw(
             synthetic_raw_cubes(batch, cells, seed=0), include_velocity=vel)).to(dev)
@@ -184,22 +210,45 @@ def main() -> int:
         channels = C.GRAPH_VEL_CHANNELS if vel else C.GRAPH_CHANNELS
         model = build_model(C.ModelConfig(
             family=family, channels=tuple(channels), k_neighbors=K,
-            dtype="bfloat16", knn_window=WINDOW), box=4.0 * cells, device=dev)
+            dtype="bfloat16", knn_window=WINDOW, **overrides),
+            box=4.0 * cells, device=dev)
         step = make_train_step(model, make_optimizer(model, 1e-3))
         step(x_in, y)
-        if model.impl_record.get("impl") != "direct":
-            raise RuntimeError(f"route {model.impl_record}, not direct")
+        if any(model.impl_record.get(k) != v for k, v in want.items()):
+            raise RuntimeError(f"route {route}: {model.impl_record}, not {want}")
+        for m in counted:
+            m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
+        step(x_in, y)
         torch.cuda.synchronize()
+        launches = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
         torch.cuda.reset_peak_memory_stats(dev)
         ms = cuda_ms(lambda: step(x_in, y))
         peak = torch.cuda.max_memory_allocated(dev)
-        rec = {"ms": ms, "peak_mib": peak / 2 ** 20,
-               "knn_ms": cuda_ms(lambda: model.knn_fn(x_in))}
-        key = f"{cells}^3 b{batch} {family} direct"
+        rec = {"ms": ms, "peak_mib": peak / 2 ** 20, "launches": launches,
+               "knn_ms": cuda_ms(lambda: model.knn_fn(x_in)),
+               "impl_record": dict(model.impl_record)}
+        core = model.impl_record.get("core")
+        if core and route in ("index64", "block32") and hasattr(
+                blocked, "block_index_plan"):
+            idx = model.knn_fn(x_in)
+            rec["plan_ms"] = cuda_ms(lambda: blocked.block_index_plan(
+                idx, cells, WINDOW, tuple(core), drop_self_slot0=route == "index64"))
+        key = f"{cells}^3 b{batch} {family} {route}"
         result["steps"][key] = rec
         print(f"{key}: step {ms:.3f} ms, peak {peak / 2 ** 20:.1f} MiB, graph "
-              f"build {rec['knn_ms']:.4f} ms ({smi})", flush=True)
-        if cells != 32:
+              f"build {rec['knn_ms']:.4f} ms, plan {rec.get('plan_ms')} ms, "
+              f"launches/step {launches} ({smi})", flush=True)
+        if args.profile:
+            prof = profile_steps(lambda: step(x_in, y))
+            rec["profile"] = prof
+            print(f"profile {key}: {prof['kernels_per_step']:.0f} kernels/step, "
+                  f"busy {prof['busy_ms_per_step']:.3f} ms, wall "
+                  f"{prof['wall_ms_per_step']:.3f} ms, idle {prof['idle_share']:.3f}")
+            for name, b in prof["buckets"].items():
+                print(f"  {name:<24} {b['ms']:8.3f} ms  {b['launches']:6.0f} launches")
+        if route != "direct32":
+            del model, step, x, x_in, y
+            torch.cuda.empty_cache()
             continue
         idx = model.knn_fn(x_in)
         pn = torch.remainder((x_in[..., :3] + 2.0 * cells + x_in[..., 3:6])
@@ -230,14 +279,6 @@ def main() -> int:
             moved.pop("neighbor_scatter_add", None)   # it runs the segment sum
         result["step_bytes_32"] = moved
         print(f"kernels B/C in one step: {moved}", flush=True)
-        if args.profile:
-            prof = profile_steps(lambda: step(x_in, y))
-            result["profile_32"] = prof
-            print(f"profile 32^3 b4: {prof['kernels_per_step']:.0f} kernels/step, "
-                  f"busy {prof['busy_ms_per_step']:.3f} ms, wall "
-                  f"{prof['wall_ms_per_step']:.3f} ms, idle {prof['idle_share']:.3f}")
-            for name, b in prof["buckets"].items():
-                print(f"  {name:<24} {b['ms']:8.3f} ms  {b['launches']:6.0f} launches")
         del model, step, x, x_in, y, e, idx
         torch.cuda.empty_cache()
 

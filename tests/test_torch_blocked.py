@@ -7,7 +7,11 @@ Kernels D/E's plain versions equal idx_dot_gather/idx_dot_scatter (Pallas,
 interpret mode on the CPU) and F/G's equal block_*_pallas(interpret=True)
 in both ``fast`` modes: gathers exactly, scatters to atol 1e-5 (f32
 summation order).  The autograd pair reproduces the JAX custom VJPs,
-including the cast of the cotangent to bf16.
+including the cast of the cotangent to bf16.  The block plan the
+scatters E and G run over matches a numpy reference (stable order, ties
+by edge id, out-of-range positions last), their plain versions are
+bit-equal to a sequential numpy f32 sum in edge order, and the wrappers
+refuse a plan that does not fit.
 """
 
 import numpy as np
@@ -123,21 +127,21 @@ def test_masked_ops_match(core):
     idx = _graph()
     v, ev = _rand((B, N, 5), 4), _rand((B, N, K, 5), 5)
     jpos = jbl.block_positions(jnp.asarray(idx), CELLS, W, core, drop_self_slot0=True)
-    tpos = tbl.block_positions(_t(idx), CELLS, W, core, drop_self_slot0=True)
+    tplan = tbl.block_index_plan(_t(idx), CELLS, W, core, drop_self_slot0=True)
     kw = dict(core=core, self_slot0=True)
     np.testing.assert_array_equal(
-        tbl.masked_gather(_t(v), tpos, CELLS, W, **kw).numpy(),
+        tbl.masked_gather(_t(v), tplan, CELLS, W, **kw).numpy(),
         np.asarray(jbl.masked_gather(jnp.asarray(v), jpos, CELLS, W, **kw)))
     np.testing.assert_allclose(
-        tbl.masked_scatter_add(_t(ev), tpos, CELLS, W, **kw).numpy(),
+        tbl.masked_scatter_add(_t(ev), tplan, CELLS, W, **kw).numpy(),
         np.asarray(jbl.masked_scatter_add(jnp.asarray(ev), jpos, CELLS, W, **kw)),
         rtol=0, atol=1e-5)
     eb = jbl.edges_cube_to_blocks(jnp.asarray(ev), CELLS, core)
     np.testing.assert_array_equal(
-        tbl.masked_gather_blocks(_t(v), tpos, CELLS, W, **kw).numpy(),
+        tbl.masked_gather_blocks(_t(v), tplan, CELLS, W, **kw).numpy(),
         np.asarray(jbl.masked_gather_blocks(jnp.asarray(v), jpos, CELLS, W, **kw)))
     np.testing.assert_allclose(
-        tbl.masked_scatter_add_blocks(_t(np.array(eb)), tpos, CELLS, W,
+        tbl.masked_scatter_add_blocks(_t(np.array(eb)), tplan, CELLS, W,
                                       **kw).numpy(),
         np.asarray(jbl.masked_scatter_add_blocks(eb, jpos, CELLS, W, **kw)),
         rtol=0, atol=1e-5)
@@ -154,13 +158,14 @@ def _positions(c, seed, nb=4, et=40, p=24):
 def test_idx_dot_plain_matches_pallas(c):
     pos, pat, ev = _positions(c, 10 + c)
     p = pat.shape[2]
+    plan = BK.block_plan(_t(pos), p)
     got = IK.dot_gather(_t(pos), _t(pat))
     assert got.dtype == torch.bfloat16
     want = np.asarray(JIK.idx_dot_gather(jnp.asarray(pos), jnp.asarray(pat)))
     np.testing.assert_array_equal(got.float().numpy(), want)
     np.testing.assert_array_equal(
-        IK.idx_dot_gather(_t(pos), _t(pat)).float().numpy(), want)
-    got = IK.dot_scatter(_t(pos), _t(ev), p)
+        IK.idx_dot_gather(plan, _t(pat)).float().numpy(), want)
+    got = IK.dot_scatter(plan, _t(ev), p)
     want = np.asarray(JIK.idx_dot_scatter(jnp.asarray(pos), jnp.asarray(ev), p))
     assert got.dtype == torch.float32 and got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
@@ -179,7 +184,7 @@ def test_block_kernels_plain_match_pallas(fast, dtype):
     assert got.dtype == tdt
     np.testing.assert_array_equal(got.float().numpy(), want)
     p = pat.shape[2]
-    got = BK.block_scatter(_t(pos), _t(ev).to(tdt), p, fast=fast)
+    got = BK.block_scatter(BK.block_plan(_t(pos), p), _t(ev).to(tdt), p, fast=fast)
     want = np.asarray(block_scatter_pallas(jnp.asarray(pos), jev, (p, 1, 1),
                                            fast=fast, interpret=True))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5)
@@ -193,9 +198,10 @@ def test_idx_pair_grads_match_jax_vjp():
     p = pat.shape[2]
     ct_g, ct_s = _rand(ev.shape, 33), _rand(pat.shape, 34)
     tpat, tev = _t(pat).requires_grad_(), _t(ev).requires_grad_()
-    (gp,) = torch.autograd.grad(IK.idx_dot_gather(_t(pos), tpat), tpat,
+    plan = BK.block_plan(_t(pos), p)
+    (gp,) = torch.autograd.grad(IK.idx_dot_gather(plan, tpat), tpat,
                                 _t(ct_g).to(torch.bfloat16))
-    (ge,) = torch.autograd.grad(IK.idx_dot_scatter(_t(pos), tev, p), tev, _t(ct_s))
+    (ge,) = torch.autograd.grad(IK.idx_dot_scatter(plan, tev, p), tev, _t(ct_s))
     jpos = jnp.asarray(pos)
     _, vjp_g = jax.vjp(lambda a: JIK.idx_dot_gather(jpos, a), jnp.asarray(pat))
     _, vjp_s = jax.vjp(lambda a: JIK.idx_dot_scatter(jpos, a, p), jnp.asarray(ev))
@@ -214,13 +220,13 @@ def test_masked_route_grads_match_jax():
     v, ev = _rand((B, N, 4), 40, True), _rand((B, N, K, 4), 41, True)
     ct_g, ct_s = _rand((B, N, K, 4), 42, True), _rand((B, N, 4), 43, True)
     jpos = jbl.block_positions(jnp.asarray(idx), CELLS, W, core, drop_self_slot0=True)
-    tpos = tbl.block_positions(_t(idx), CELLS, W, core, drop_self_slot0=True)
+    tplan = tbl.block_index_plan(_t(idx), CELLS, W, core, drop_self_slot0=True)
     kw = dict(core=core, self_slot0=True)
     bf = torch.bfloat16
     tv, te = _t(v).to(bf).requires_grad_(), _t(ev).to(bf).requires_grad_()
-    (gv,) = torch.autograd.grad(tbl.masked_gather(tv, tpos, CELLS, W, **kw), tv,
+    (gv,) = torch.autograd.grad(tbl.masked_gather(tv, tplan, CELLS, W, **kw), tv,
                                 _t(ct_g).to(bf))
-    (ge,) = torch.autograd.grad(tbl.masked_scatter_add(te, tpos, CELLS, W, **kw),
+    (ge,) = torch.autograd.grad(tbl.masked_scatter_add(te, tplan, CELLS, W, **kw),
                                 te, _t(ct_s).to(bf))
     jb = jnp.bfloat16
     _, vjp_g = jax.vjp(lambda a: jbl.masked_gather(a, jpos, CELLS, W, **kw),
@@ -265,22 +271,21 @@ def test_block_route_ops_match_indexing(dtype):
 
 def test_select_wrappers_refuse_bad_inputs():
     pos, pat, ev = (_t(a) for a in _positions(3, 60))
+    plan = BK.block_plan(pos, pat.shape[2])
     with pytest.raises(ValueError):
         IK.dot_gather(pos.to("meta"), pat.to("meta"))
     with pytest.raises(ValueError):
-        BK.block_scatter(pos.long(), ev, pat.shape[2])
+        BK.block_scatter(plan._replace(pos=pos.long()), ev, pat.shape[2])
     with pytest.raises(ValueError):
         BK.block_gather(pos[:1], pat)
     with pytest.raises(ValueError):
-        IK.dot_scatter(pos, ev[..., 0], pat.shape[2])
+        IK.dot_scatter(plan, ev[..., 0], pat.shape[2])
     with pytest.raises(ValueError):
         tbl.block_geometry(CELLS, W, (3, 4, 4))
 
 
 @pytest.mark.parametrize("p,c,elem,budget,want", [
-    (1728, 64, 2, BK.GATHER_SMEM, 32), (1728, 64, 4, BK.SCATTER_SMEM, 13),
-    (1152, 64, 4, BK.SCATTER_SMEM, 16), (768, 64, 4, BK.SCATTER_SMEM, 32),
-    (1152, 6, 2, BK.GATHER_SMEM, 6), (768, 1, 4, BK.SCATTER_SMEM, 1)])
+    (1728, 64, 2, BK.GATHER_SMEM, 32), (1152, 6, 2, BK.GATHER_SMEM, 6)])
 def test_channel_tile_fits_the_budget(p, c, elem, budget, want):
     ct = BK.c_tile(p, c, elem, budget)
     assert ct == want
@@ -295,3 +300,145 @@ def test_channel_tile_fits_the_budget(p, c, elem, budget, want):
 def test_vector_width_divides_channels_and_alignment(c, elem, ptr, want):
     v = BK.vector_width(c, elem, 4096, 4096 + ptr)
     assert v == want and c % v == 0 and ptr % (v * elem) == 0
+
+
+def _plan_reference(pos, p):
+    """The block plan in numpy: site keys blk*P + pos (no site: B*NB*P),
+    a stable argsort (ties by ascending edge id) and each site's first
+    edge."""
+    b, nb, et = pos.shape
+    blk = np.arange(b * nb).reshape(b, nb, 1)
+    valid = (pos >= 0) & (pos < p)
+    keys = np.where(valid, blk * p + pos, b * nb * p).reshape(-1)
+    order = np.argsort(keys, kind="stable")
+    offsets = np.searchsorted(keys[order], np.arange(b * nb * p + 1), side="left")
+    return order, offsets
+
+
+@pytest.mark.parametrize("core", CORES)
+def test_block_plan_matches_numpy(core):
+    """The plan of the registry's positions (self slot dropped) and of
+    the block route's (every slot), and of random positions with some
+    outside [0, P): equal to the numpy reference; the out-of-range edges
+    come last, past offsets[-1]."""
+    idx = _graph(seed=13)
+    p = tbl.patch_size(CELLS, W, core)
+    plans = [tbl.block_index_plan(_t(idx), CELLS, W, core, drop_self_slot0=drop)
+             for drop in (True, False)]
+    rng = np.random.default_rng(sum(core))
+    rand = rng.integers(-3, p + 3, (B, 5, 77)).astype(np.int32)
+    plans.append(BK.block_plan(_t(rand), p))
+    for plan in plans:
+        pos = plan.pos.numpy()
+        assert plan.order.dtype == plan.offsets.dtype == torch.int32
+        order, offsets = _plan_reference(pos, p)
+        np.testing.assert_array_equal(plan.order.numpy(), order)
+        np.testing.assert_array_equal(plan.offsets.numpy(), offsets)
+        flat = pos.reshape(-1)
+        tail = plan.order.numpy()[plan.offsets[-1]:]
+        assert ((flat[tail] < 0) | (flat[tail] >= p)).all()
+        np.testing.assert_array_equal(
+            plan.site_degree().numpy().reshape(B, -1, p).sum(-1),
+            ((pos >= 0) & (pos < p)).sum(-1))
+    np.testing.assert_array_equal(
+        plans[0].pos.numpy(), tbl.block_positions(_t(idx), CELLS, W, core,
+                                                  drop_self_slot0=True).numpy())
+
+
+def _sequential_sum(pos, vals, p):
+    """Per (batch, block, site) f32 sums, added one edge at a time in
+    ascending edge order (np.add.at is unbuffered and sequential)."""
+    b, nb, et, c = vals.shape
+    out = np.zeros((b, nb, p + 1, c), np.float32)
+    ids = np.where((pos >= 0) & (pos < p), pos, p)
+    for bi in range(b):
+        for n in range(nb):
+            np.add.at(out[bi, n], ids[bi, n], vals[bi, n])
+    return out[:, :, :p]
+
+
+@pytest.mark.parametrize("c", [1, 6, 16])
+@pytest.mark.parametrize("kernel,dtype,fast", [
+    ("E", "bfloat16", False), ("G", "float32", False), ("G", "float32", True),
+    ("G", "bfloat16", False), ("G", "bfloat16", True)])
+def test_scatter_plain_bit_equal_sequential_sum(kernel, dtype, fast, c):
+    """Kernels E and G's plain versions over the plan are bit-equal to a
+    sequential numpy f32 sum in edge order: E sums the bf16 rounding of
+    its operand, G with ``fast`` the bf16 rounding of f32 input."""
+    pos, pat, ev = _positions(c, 70 + c)
+    p = pat.shape[2]
+    tdt = getattr(torch, dtype)
+    plan = BK.block_plan(_t(pos), p)
+    x = _t(ev).to(tdt)
+    rounded = kernel == "E" or fast
+    terms = (x.to(torch.bfloat16) if rounded else x).float().numpy()
+    if kernel == "E":
+        got = IK.dot_scatter(plan, x, p)
+        assert torch.equal(got, IK.dot_scatter_plain(plan, x, p))
+    else:
+        got = BK.block_scatter(plan, x, p, fast=fast)
+    assert got.dtype == torch.float32 and got.shape == (B, 4, p, c)
+    np.testing.assert_array_equal(got.numpy(), _sequential_sum(pos, terms, p))
+
+
+def test_scatter_wrappers_refuse_an_unfit_plan():
+    """A plan of another patch size, edge count or index dtype, or on
+    another device, does not fit the scatter's vals: E and G raise."""
+    pos, pat, ev = (_t(a) for a in _positions(4, 80))
+    p = pat.shape[2]
+    plan = BK.block_plan(pos, p)
+    other_p = BK.block_plan(pos, p + 1)
+    other_et = BK.block_plan(pos[:, :, :-1].contiguous(), p)
+    for bad in (other_p, other_et, plan._replace(order=plan.order.long()),
+                plan._replace(offsets=plan.offsets[:-1])):
+        with pytest.raises(ValueError):
+            BK.block_scatter(bad, ev, p)
+        with pytest.raises(ValueError):
+            IK.dot_scatter(bad, ev, p)
+    with pytest.raises(ValueError):
+        BK.block_scatter(plan, ev, p + 1)
+    with pytest.raises(ValueError):
+        BK.block_scatter(plan._replace(order=plan.order.to("meta")), ev, p)
+    with pytest.raises(ValueError):
+        BK.block_plan(pos.long(), p)
+
+
+@pytest.mark.parametrize("core", CORES)
+def test_plan_counts_equal_the_scatter_of_ones(core):
+    """The in-degrees read off the plan (no kernel launch) equal the
+    width-1 scatter of ones they replace, on the index route (self slot
+    dropped, added back) and the block route, in bf16 and f32."""
+    idx = _graph(seed=17)
+    plan = tbl.block_index_plan(_t(idx), CELLS, W, core, drop_self_slot0=True)
+    for dt in (torch.float32, torch.bfloat16):
+        ones = torch.ones((B, N, K, 1), dtype=dt)
+        want = tbl.masked_scatter_add(ones, plan, CELLS, W, core=core,
+                                      self_slot0=True)[..., 0]
+        got = tbl.masked_counts(plan, CELLS, W, core, True, dt)
+        assert got.dtype == dt
+        np.testing.assert_array_equal(got.float().numpy(), want.float().numpy())
+    full = tbl.block_index_plan(_t(idx), CELLS, W, core)
+    np.testing.assert_array_equal(
+        tbl.plan_counts(full, CELLS, W, core).numpy(),
+        tb.neighbor_counts(_t(idx)).numpy())
+
+
+@pytest.mark.parametrize("route", ["direct", "block", "masked"])
+def test_route_plan_is_the_routes_plan(route):
+    """banded.route_plan, which every forward calls once, builds the direct
+    route's GraphPlan, the block route's BlockPlan of CORE blocks, and
+    nothing on a masked route (its plan travels as the masks)."""
+    from nbody_tpu_torch.ops.kernels.banded_kernels import graph_plan
+    idx = _t(_graph())
+    if route == "direct":
+        got, want = tb.route_plan(idx), graph_plan(idx)
+    elif route == "block":
+        got = tb.route_plan(idx, (CELLS, W))
+        want = tbl.block_index_plan(idx, CELLS, W, tbl.CORE)
+    else:
+        lat = (CELLS, W, (4, 8, 8), True)
+        masks = tbl.block_index_plan(idx, CELLS, W, (4, 8, 8), drop_self_slot0=True)
+        assert tb.route_plan(idx, lat, masks) is None
+        return
+    assert type(got) is type(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

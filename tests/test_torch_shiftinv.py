@@ -186,7 +186,6 @@ def test_network_over_one_graph_plan_matches_jax(dtype, monkeypatch):
     """shiftinv_network builds the graph plan once and every scatter of the
     forward and the backward runs over it; outputs and gradients (edges
     and params) match JAX's shiftinv_network."""
-    from nbody_tpu_torch.models import shiftinv as tshift
     from nbody_tpu_torch.ops import banded as tband
     from nbody_tpu_torch.ops.kernels import banded_kernels as tk
     built, plan_of = [], tk.graph_plan
@@ -195,7 +194,7 @@ def test_network_over_one_graph_plan_matches_jax(dtype, monkeypatch):
         built.append(idx.shape)
         return plan_of(idx)
 
-    for mod in (tshift, tband, tk):
+    for mod in (tband, tk):
         monkeypatch.setattr(mod, "graph_plan", counted_plan)
     params, edges, idx, ct = _network_inputs(dtype)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)

@@ -139,7 +139,7 @@ def test_edge_features_with_nodes_match(route, dtype):
         core = tbl.MASKED_CORE
         jkw = dict(lattice=(CELLS, 2, core, True), masks=jbl.block_positions(
             jnp.asarray(idx), CELLS, 2, core, drop_self_slot0=True))
-        tkw = dict(lattice=(CELLS, 2, core, True), masks=tbl.block_positions(
+        tkw = dict(lattice=(CELLS, 2, core, True), masks=tbl.block_index_plan(
             torch.from_numpy(idx), CELLS, 2, core, drop_self_slot0=True))
     want = jgf.edge_features_with_nodes(
         jnp.asarray(pos).astype(jdt), jnp.asarray(idx), jnp.asarray(vel).astype(jdt),
@@ -249,8 +249,10 @@ def test_index_core_choice(masked_core, cells, want):
     masks, lat = registry._make_masks(cfg, cells, cells ** 3, idx,
                                       torch.bfloat16, rec)
     assert rec["core"] == want and lat == (cells, 2, tuple(want), True)
-    assert masks.shape == (1, cells ** 3 // int(np.prod(want)),
-                           int(np.prod(want)) * (K - 1))
+    assert masks.pos.shape == (1, cells ** 3 // int(np.prod(want)),
+                               int(np.prod(want)) * (K - 1))
+    assert masks.offsets.shape == (
+        cells ** 3 // int(np.prod(want)) * tbl.patch_size(cells, 2, want) + 1,)
 
 
 def test_coverage_host_search_matches_sklearn(monkeypatch):

@@ -140,6 +140,18 @@ def test_cli_train_cpu(capsys):
         cli_train.main(["--platform", "cpu", "--scan", "10"])
 
 
+def test_cli_name_is_refused_until_artifacts_are_ported():
+    """-n names the JAX CLI's checkpoints and artifacts, which the port
+    does not save: a name raises the not-ported error instead of being
+    dropped; the default empty name runs."""
+    base = ["--platform", "cpu", "--cells", "8", "-i", "1", "-b", "2", "-t", "2",
+            "--samples", "8", "-k", "6", "--knn_window", "2", "-c", "3", "8", "3",
+            "--synthetic"]
+    with pytest.raises(NotImplementedError, match="--name='foo'"):
+        cli_train.main(base + ["-n", "foo"])
+    assert cli_train.main(base + ["-n", ""]) == 0
+
+
 def test_cuda_platform_needs_a_card():
     if torch.cuda.is_available():
         assert cli_train.resolve_device("cuda").type == "cuda"
