@@ -51,13 +51,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
  10. hold kernels H/I (the int8 / packed-int4 mask-dot pair) against their
      plain versions at the 32^3 b4 core (4,8,8) shapes, on masks that
      block_masks builds from the main path's graph, for every width
-     (gathers bit-equal, scatters within 1e-5 of the summed |terms|);
-     then general-valued masks at small shapes with ragged tails; the
-     autograd pair against the CPU; time kernel and plain version;
+     (gathers bit-equal, scatters within 1e-5 of the summed |terms| and
+     identical across two launches); then general-valued masks at small
+     shapes with ragged tails; kernel I bit-equal to its plain version on
+     single-term probe masks (one nonzero of any value per column); the
+     autograd pair against the CPU; time kernel (events and device time),
+     plain version and the torch.bmm yardstick on the pre-widened bf16
+     mask, I at every width, H at C 64;
  11. the --mask_dtype int8 route through its entry points: Trainer with the
      coverage guard, 5 bf16 fit steps and evaluate at 32^3 b4, counting
-     launches (H and I run; B-G do not); step time and peak memory; then
-     3 fit steps with int4, with the same checks;
+     launches (H and I run; B-G do not); step time and peak memory; one
+     int8 train step must launch lattice_knn once, H 12 times and I 12
+     times; then 3 fit steps with int4, with the same checks;
  12. the same params and batch through the int8 route and the direct
      route in bf16: loss within rtol 3e-2, gradient cosine above 0.998;
  13. hold kernel J (the fused layer boundary) against boundary_reference
@@ -92,6 +97,10 @@ STEP_LAUNCHES = {"lattice_knn": 1, "topk_min": 0, "neighbor_segment_sum": 11}
 # counts come off the block plan, with no launch)
 INDEX_STEP_LAUNCHES = {"lattice_knn": 1, "idx_dot_gather": 12, "idx_dot_scatter": 11}
 BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "block_gather": 12, "block_scatter": 11}
+# and on the int8 route: the features' gather, 6 forward and 5 backward
+# gathers (H); the in-degree count, 6 forward scatter-means and 5
+# gradients of the gathers (I)
+INT8_STEP_LAUNCHES = {"lattice_knn": 1, "mask_dot_gather": 12, "mask_dot_scatter": 12}
 # H100 SXM published peaks (NVIDIA data sheet), the bounds' denominators
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_OPS = 67e12
@@ -625,14 +634,38 @@ def check_mask_kernels(dev, idx):
             gerr, gworst = scatter_worst(got, want, MK.mask_dot_gather_plain(
                 absm, pat.abs()), False)
             note("mask_dot_gather", gerr)
-        err, worst = scatter_worst(MK.dot_scatter(m, ev),
-                                   MK.mask_dot_scatter_plain(m, ev),
+        got, again = MK.dot_scatter(m, ev), MK.dot_scatter(m, ev)
+        err, worst = scatter_worst(got, MK.mask_dot_scatter_plain(m, ev),
                                    MK.mask_dot_scatter_plain(absm, ev.abs()), False)
         note("mask_dot_scatter", err)
+        same = torch.equal(got, again)
         print(f"kernels H/I {label} {tuple(m.shape)} P={p} C={c:>2}: gather "
               + ("bit-equal" if exact else f"worst err - tol {gworst:.3e}")
-              + f", scatter max|err| {err:.3e} (worst err - tol {worst:.3e})")
+              + f", scatter max|err| {err:.3e} (worst err - tol {worst:.3e}), "
+              f"same across two launches {same}")
         check(gworst <= 0 and worst <= 0, f"mask_dot {label} C={c} out of tolerance")
+        check(same, f"mask_dot_scatter {label} C={c} differs between two launches")
+
+    def probe(shape, c, int4):
+        """Kernel I bit-equal to its plain version on masks with one
+        nonzero of any value per column p: every sum has one term, so a
+        wrong row map shows as a difference that no tolerance hides."""
+        b, nb, et, p = shape
+        lo, hi = (-8, 8) if int4 else (-128, 128)
+        rows = torch.randint(0, et, (b, nb, 1, p), generator=g, device=dev)
+        vals = torch.randint(lo, hi, (b, nb, 1, p), generator=g, device=dev,
+                             dtype=torch.int8)
+        m = torch.zeros(shape, dtype=torch.int8, device=dev).scatter_(2, rows, vals)
+        m = MK.pack_int4(m) if int4 else m
+        ev = randn((b, nb, et, c))
+        got, want = MK.dot_scatter(m, ev), MK.mask_dot_scatter_plain(m, ev)
+        err = float((got - want).abs().max())
+        note("mask_dot_scatter", err)
+        label = "int4" if int4 else "int8"
+        print(f"kernel I single-term probe {label} {shape} C={c:>2}: "
+              f"bit-equal {torch.equal(got, want)} (max|err| {err:.3e})")
+        check(torch.equal(got, want), f"mask_dot_scatter probe {label} {shape} "
+                                      f"C={c} not bit-equal")
 
     masks = {mdt: blocked.block_masks(idx, CELLS, WINDOW, dt, MASK_CORE,
                                       drop_self_slot0=True)
@@ -648,6 +681,11 @@ def check_mask_kernels(dev, idx):
         for c in (3, 64, 80):
             hold(m8, c, "general int8", False)
             hold(MK.pack_int4(m8), c, "general int4", False)
+    route_shape = tuple(masks["int8"].shape)
+    for int4 in (False, True):
+        for c in MASK_WIDTHS + (80,):
+            probe(route_shape, c, int4)
+        probe((2, 8, 200, 216), 3, int4)
 
     # the autograd pair on 16 blocks, card against the CPU's plain versions
     m = masks["int8"][:, :16].contiguous()
@@ -669,27 +707,42 @@ def check_mask_kernels(dev, idx):
           f"{torch.equal(ge.cpu(), gec)}")
     check(gworst <= 0 and torch.equal(ge.cpu(), gec), "mask pair gradients disagree")
 
-    c = 64
-    for mdt, m in masks.items():
-        b, nb, et = m.shape[:3]
-        pat, ev = randn((b, nb, MK.patch_width(m), c)), randn((b, nb, et, c))
-        times = {"mask_dot_gather": (lambda: MK.dot_gather(m, pat),
-                                     lambda: MK.mask_dot_gather_plain(m, pat)),
-                 "mask_dot_scatter": (lambda: MK.dot_scatter(m, ev),
-                                      lambda: MK.mask_dot_scatter_plain(m, ev))}
-        for name, (kern, plain) in times.items():
-            ms, plain_ms = cuda_ms(kern, iters=10), cuda_ms(plain, iters=5)
-            # the mask, the operand and the f32 output; a dense product of
-            # every mask entry on the bf16 tensor cores; no one PyTorch call
-            ms_bound, by = bound(
-                nbytes(m, pat if name == "mask_dot_gather" else ev, kern()),
-                2.0 * b * nb * et * MK.patch_width(m) * c, H100_BF16_TC_OPS)
-            if mdt == "int8":
-                rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=None,
-                                 bound_ms=ms_bound, bound_by=by)
-            print(f"time {name} {mdt}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                  f"ms, bound {ms_bound:.4f} ms ({by}; 32^3 b4 core {MASK_CORE}, "
-                  f"{tuple(m.shape)}, C={c} bf16)")
+    # the yardstick: one torch.bmm on the mask widened to bf16 before the
+    # timed window (int8 and int4 route masks widen to the same tensor), so
+    # it reads 2x (int8) or 4x (int4) the kernels' mask bytes
+    b, nb, et, p = masks["int8"].shape
+    wide = MK.widen(masks["int8"]).to(bf).reshape(b * nb, et, p)
+    f32_out = "out_dtype" in (torch.bmm.__doc__ or "")
+    out_kw = {"out_dtype": torch.float32} if f32_out else {}
+    print(f"yardstick torch.bmm on the bf16-widened mask, "
+          f"{'f32' if f32_out else 'bf16'} output")
+    for name in ("mask_dot_scatter", "mask_dot_gather"):
+        scatter = name == "mask_dot_scatter"
+        # every width for I; H at C 64
+        for c in MASK_WIDTHS if scatter else (64,):
+            x = randn((b, nb, et if scatter else p, c))
+            a = wide.transpose(1, 2) if scatter else wide
+            xl = x.reshape(b * nb, -1, c)
+            lib_ms = cuda_ms(lambda: torch.bmm(a, xl, **out_kw), iters=10)
+            for mdt, m in masks.items():
+                fn = MK.dot_scatter if scatter else MK.dot_gather
+                kern = lambda: fn(m, x)
+                plain = (MK.mask_dot_scatter_plain if scatter
+                         else MK.mask_dot_gather_plain)
+                ms, plain_ms = cuda_ms(kern, iters=10), cuda_ms(lambda: plain(m, x),
+                                                                iters=5)
+                dev_ms = device_ms(kern)
+                # the mask, the operand and the f32 output; a dense product
+                # of every mask entry on the bf16 tensor cores
+                ms_bound, by = bound(nbytes(m, x, kern()), 2.0 * b * nb * et * p * c,
+                                     H100_BF16_TC_OPS)
+                if mdt == "int8" and c == 64:
+                    rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                     bound_ms=ms_bound, bound_by=by)
+                print(f"time {name} {mdt} C={c}: kernel {ms:.4f} ms (device "
+                      f"{dev_ms:.4f}), plain {plain_ms:.4f} ms, torch.bmm "
+                      f"{lib_ms:.4f} ms, bound {ms_bound:.4f} ms ({by}; 32^3 b4 "
+                      f"core {MASK_CORE}, {tuple(m.shape)} bf16)")
     return rec
 
 
@@ -880,6 +933,8 @@ def run_int_route(dev, C, dataset, counted):
               f"a kernel of B-G ran on the {mdt} route")
         step_time(trainer, x, y, 5, f"32^3 b4 K14 w2 bf16 shiftinv, --mask_dtype "
                                     f"{mdt} core {MASK_CORE}")
+        if mdt == "int8":
+            one_step_launches(trainer, x, y, counted, INT8_STEP_LAUNCHES, "int8")
         counts8 = counts8 or counts
         del trainer
     return counts8

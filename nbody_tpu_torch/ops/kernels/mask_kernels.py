@@ -20,6 +20,8 @@ cotangent, cast to the primal's dtype; the masks get none
 (mask_kernels.py:105-150).  JAX's ``group`` / ``set_group`` (blocks per
 Pallas grid step, amortizing Mosaic's per-step cost on the TPU) is not
 carried over: on the H100 a CTA per row tile of each block is the grain.
+Kernel I's row tile grows as C shrinks; ``scatter_tiling`` chooses it
+here and the C entry checks it.
 The kernels are csrc/mask_kernels.cu (the .cu file has the design note);
 each wrapper takes its plain PyTorch version only for a CPU tensor, and
 for a CUDA tensor launches its kernel or raises.
@@ -28,6 +30,7 @@ for a CUDA tensor launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -40,7 +43,9 @@ _INT_MAX = 2 ** 31 - 1
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    "mask_dot": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    "mask_dot_gather": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    "mask_dot_scatter": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _P),
     "fused_boundary": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
                        _I, _I, _I, _I, _I, _P),
     "fused_boundary_smem_bytes": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
@@ -134,22 +139,67 @@ def check_masks(masks: torch.Tensor, x: torch.Tensor, transpose: bool, name: str
         raise ValueError(f"{name} kernel takes contiguous masks")
 
 
-def _launch(masks: torch.Tensor, x: torch.Tensor, transpose: bool,
-            name: str) -> torch.Tensor:
-    b, nb, et = masks.shape[:3]
-    p, c = patch_width(masks), x.shape[3]
-    # one CTA per (block, row tile of at most 128 rows, 64 columns)
-    if b * nb * (max(et, p) // 128 + 1) > _INT_MAX or c > 64 * 65535:
-        raise ValueError(f"{name}: too large for one launch")
-    x = x.contiguous()
-    out = torch.empty((b, nb, p if transpose else et, c), dtype=torch.float32,
-                      device=x.device)
-    err = library().mask_dot(
-        masks.data_ptr(), x.data_ptr(), out.data_ptr(), b * nb, et, p, c,
-        int(transpose), int(masks.dtype == torch.uint8), x.device.index,
-        build.stream(x.device.index))
-    build.check_launch(err, f"mask_dot ({name})")
-    return out
+class ScatterTiling(NamedTuple):
+    """Kernel I's tiling of one block's output (P, C): `row_tiles` CTAs of
+    `warps` x `rows_per_warp` rows of P per 64 columns of C, `nt` n8
+    column fragments each, and the ring's dynamic shared memory."""
+    nt: int
+    rows_per_warp: int
+    warps: int
+    row_tiles: int
+    smem_bytes: int
+
+    @property
+    def rows(self) -> int:
+        return self.warps * self.rows_per_warp
+
+
+class ScatterCfg(NamedTuple):
+    """Kernel I's ring per mask type and n8 column fragments (nt): rows of
+    P a warp owns, edges per stage, stages, CTAs per SM the registers are
+    cut for, warps per CTA at most (csrc/mask_kernels.cu: scatter_cfg)."""
+    rows_per_warp: int
+    edges: int
+    stages: int
+    min_blocks: int
+    max_warps: int
+
+
+def scatter_cfg(int4: bool, nt: int) -> ScatterCfg:
+    if nt <= 2:
+        return ScatterCfg(192, 32, 4, 2, 6)
+    if int4:
+        return ScatterCfg(64 if nt >= 8 else 128, 128, 2, 1, 10)
+    if nt >= 8:
+        return ScatterCfg(32, 64, 3, 1, 12)
+    return ScatterCfg(64, 64, 3, 2, 8)
+
+
+_MASK_PAD, _EDGE_PAD = 16, 8     # csrc/mask_kernels.cu: kMaskPad, kEdgePad
+# f32 accumulators a thread of kernel I holds at most
+SCATTER_ACC_REGS = 128
+
+
+def scatter_tiling(p: int, c: int, int4: bool) -> ScatterTiling:
+    """Kernel I's tiling at patch width P, C columns: row tiles of the
+    configuration's warps (at most max_warps) split evenly over P (csrc/
+    mask_kernels.cu: scatter_nt, scatter_cfg, scatter_smem_bytes)."""
+    w = min(c, 64)
+    nt = 8 if w > 32 else 4 if w > 16 else 2 if w > 8 else 1
+    cfg = scatter_cfg(int4, nt)
+    rw = cfg.rows_per_warp
+    tiles = -(-p // (cfg.max_warps * rw))
+    warps = -(-p // (tiles * rw))
+    tile_bytes = warps * rw // (2 if int4 else 1)
+    smem = cfg.stages * cfg.edges * (tile_bytes + _MASK_PAD
+                                     + 2 * (nt * 8 + _EDGE_PAD))
+    return ScatterTiling(nt, rw, warps, tiles, smem)
+
+
+def _out(masks, x, rows):
+    b, nb = masks.shape[:2]
+    return torch.empty((b, nb, rows, x.shape[3]), dtype=torch.float32,
+                       device=x.device)
 
 
 def dot_gather(masks: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
@@ -159,7 +209,18 @@ def dot_gather(masks: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
     patches = patches.to(torch.bfloat16)
     if patches.device.type == "cpu":
         return mask_dot_gather_plain(masks, patches)
-    out = _launch(masks, patches, False, "mask_dot_gather")
+    b, nb, et = masks.shape[:3]
+    p, c = patch_width(masks), patches.shape[3]
+    # one CTA per (block, row tile of 256 rows, 64 columns)
+    if b * nb * (et // 256 + 1) > _INT_MAX or c > 64 * 65535:
+        raise ValueError("mask_dot_gather: too large for one launch")
+    patches = patches.contiguous()
+    out = _out(masks, patches, et)
+    dev = patches.device.index
+    err = library().mask_dot_gather(
+        masks.data_ptr(), patches.data_ptr(), out.data_ptr(), b * nb, et, p, c,
+        int(masks.dtype == torch.uint8), dev, build.stream(dev))
+    build.check_launch(err, "mask_dot_gather")
     LAUNCHES["mask_dot_gather"] += 1
     return out
 
@@ -170,7 +231,20 @@ def dot_scatter(masks: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     edges = edges.to(torch.bfloat16)
     if edges.device.type == "cpu":
         return mask_dot_scatter_plain(masks, edges)
-    out = _launch(masks, edges, True, "mask_dot_scatter")
+    b, nb, et = masks.shape[:3]
+    p, c = patch_width(masks), edges.shape[3]
+    int4 = masks.dtype == torch.uint8
+    tl = scatter_tiling(max(p, 1), c, int4)
+    if b * nb * tl.row_tiles > _INT_MAX or c > 64 * 65535:
+        raise ValueError("mask_dot_scatter: too large for one launch")
+    edges = edges.contiguous()
+    out = _out(masks, edges, p)
+    dev = edges.device.index
+    err = library().mask_dot_scatter(
+        masks.data_ptr(), edges.data_ptr(), out.data_ptr(), b * nb, et, p, c,
+        int(int4), tl.nt, tl.rows_per_warp, tl.warps, tl.row_tiles,
+        tl.smem_bytes, dev, build.stream(dev))
+    build.check_launch(err, "mask_dot_scatter")
     LAUNCHES["mask_dot_scatter"] += 1
     return out
 

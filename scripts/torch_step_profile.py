@@ -28,7 +28,7 @@ change, parent.  On synthetic cubes made from a fixed seed it measures:
     once, each output written once, summed over their launches) and the
     bound they give at 3.35 TB/s (H100 SXM);
   * with --profile, torch.profiler over 3 steps of each route: device
-    time per step by bucket of kernel names (kernels D-I included),
+    time per step by bucket of kernel names (kernels D-G, H and I apart),
     kernels per step, busy time and idle share.
 Prints one JSON line, with the card's name and power limit, and writes it
 to <out_dir>/step_profile_<label>.json (default build/, which git
@@ -69,7 +69,11 @@ BUCKETS = (
     ("E/G scatter", ("select_scatter_kernel", "segment_sum_kernel<block_sites")),
     ("C segment sum", ("segment_sum_kernel",)),
     ("D/F gather", ("select_gather_kernel",)),
-    ("H/I mask dot", ("mask_dot_kernel",)),
+    # I: mask_scatter_kernel, or in a tree before it the transposed
+    # instances mask_dot_kernel<true, kInt4, NF>; H: the other instances
+    ("I mask scatter", ("mask_scatter_kernel", "mask_dot_kernel<true, true,",
+                        "mask_dot_kernel<true, false,")),
+    ("H mask gather", ("mask_dot_kernel",)),
     ("C atomic scatter", ("scatter_add_kernel",)),
     ("sort + search", ("adix", "sort", "Sort", "searchsorted")),
     ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "sm90", "cublas", "ampere")),

@@ -215,6 +215,124 @@ def test_mask_wrappers_refuse_bad_inputs():
         tbl.unpack_int4(m)
 
 
+# Kernel I's tiling and fragment arithmetic (csrc/mask_kernels.cu,
+# mask_scatter_kernel), checked here because the kernel runs only on a card.
+SMEM_OPTIN = 232_448     # H100: dynamic shared memory one block may opt in to
+
+
+def _grain(int4):
+    """Rows of P in a 32-byte group of a mask row: the row map's unit."""
+    return 64 if int4 else 32
+
+
+@pytest.mark.parametrize("p", [216, 1152])
+@pytest.mark.parametrize("c", [1, 3, 16, 32, 64, 80])
+@pytest.mark.parametrize("int4", [False, True])
+def test_scatter_tiling_fits(int4, c, p):
+    tl = MK.scatter_tiling(p, c, int4)
+    cfg = MK.scatter_cfg(int4, tl.nt)
+    assert tl.row_tiles * tl.rows >= p > (tl.row_tiles - 1) * tl.rows
+    assert 1 <= tl.warps <= cfg.max_warps and tl.rows_per_warp == cfg.rows_per_warp
+    assert tl.rows_per_warp % _grain(int4) == 0
+    assert cfg.edges % 16 == 0 and cfg.stages >= 2
+    assert tl.nt * 8 >= min(c, 64) and tl.nt in (1, 2, 4, 8)
+    assert tl.smem_bytes <= SMEM_OPTIN
+    # f32 accumulators a thread, (rows / 16 m-tiles) x nt x 4 over 32
+    # lanes, within the budget and 32 under the registers the launch
+    # bounds leave a thread (16,384 per SM sub-partition, the warps of
+    # min_blocks CTAs spread over 4 of them, in steps of 8)
+    per_sp = -(-cfg.max_warps * cfg.min_blocks // 4)
+    regs = min(255, 16384 // (32 * per_sp) // 8 * 8)
+    assert tl.rows_per_warp * tl.nt // 4 <= min(MK.SCATTER_ACC_REGS, regs - 32)
+    # the edge operand of a block is read once per row tile
+    if c <= 16 and p <= 1152:
+        assert tl.row_tiles == 1
+    if c == 64 and p == 1152 and int4:
+        assert tl.row_tiles <= 3
+
+
+def _widen(vals, int4):
+    """The kernel's widening of mask bytes ^ 0x80 (int8) or nibbles ^ 8
+    (int4) to bf16.  int8: under the f32 exponent of 2^23, minus 2^23 +
+    128, and the upper half of the f32 taken as the bf16 (its low half
+    must be zero).  int4: the bf16 0x4300 | nibble (128 + nibble) minus 136
+    in bf16."""
+    vals = np.asarray(vals, dtype=np.uint32)
+    if int4:
+        bits = (np.uint32(0x4300) | vals).astype(np.uint16)
+        wide = torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+        return wide - torch.tensor(136, dtype=torch.bfloat16)
+    f = (np.uint32(0x4B000000) | vals).view(np.float32) - np.float32(8388736)
+    bits = f.view(np.uint32)
+    assert not (bits & np.uint32(0xFFFF)).any()
+    return torch.from_numpy((bits >> np.uint32(16)).astype(np.uint16).view(np.int16)
+                            ).view(torch.bfloat16)
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_scatter_widening_is_exact(int4):
+    if int4:
+        nib = np.arange(16, dtype=np.uint32)
+        want = np.where(nib >= 8, nib.astype(np.int64) - 16, nib)
+        got = _widen(nib ^ 8, True)
+    else:
+        byte = np.arange(256, dtype=np.uint32)
+        want = byte.astype(np.uint8).view(np.int8).astype(np.int64)
+        got = _widen(byte ^ 0x80, False)
+    np.testing.assert_array_equal(got.float().numpy(), want.astype(np.float32))
+
+
+def _row_map(int4):
+    """(lane, m16 tile mi, h) -> row of P in a 32-byte group: accumulator
+    row g + 8h of tile mi (g = lane // 4) holds value 2mi + h of the word
+    at byte 4g."""
+    grain = _grain(int4)
+    return {(lane, mi, h): (grain // 8) * (lane // 4) + 2 * mi + h
+            for lane in range(32) for mi in range(grain // 16) for h in (0, 1)}
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_scatter_fragments_reproduce_the_product(int4):
+    """One warp's k16 step on one 32-byte group, emulated lane by lane as
+    the kernel builds it: the A words, the widening into bf16 pairs, the
+    m16n8k16 fragment layout and the row map of the epilogue give M^T . E
+    of the group; the row map is a bijection onto the group's rows."""
+    grain = _grain(int4)
+    rmap = _row_map(int4)
+    # the four lanes of a quad share rows (they own other columns): over
+    # (g, mi, h) each row of the group comes once
+    by_g = {(lane // 4, mi, h): r for (lane, mi, h), r in rmap.items()}
+    assert sorted(by_g.values()) == list(range(grain))
+
+    rng = np.random.default_rng(3)
+    vals = rng.integers(-8, 8, (16, grain)) if int4 else rng.integers(-128, 128, (16, grain))
+    m = tbl.pack_int4(_t(vals)).numpy() if int4 else vals.astype(np.int8).view(np.uint8)
+    words = np.ascontiguousarray(m).view(np.uint32)            # (16 e, 8 words)
+    e = torch.from_numpy(rng.normal(size=(16, 8)).astype(np.float32)).to(torch.bfloat16)
+    n_mt = grain // 16
+    a = torch.zeros((n_mt, 16, 16), dtype=torch.bfloat16)      # (tile, row, k)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for q, k in enumerate((2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)):
+            w = np.uint32(words[k, g])
+            if int4:
+                x = w ^ np.uint32(0x88888888)
+                lo, hi = x & np.uint32(0x0F0F0F0F), (x >> np.uint32(4)) & np.uint32(0x0F0F0F0F)
+            else:
+                lo = hi = w ^ np.uint32(0x80808080)
+            for mi in range(n_mt):
+                jl, jh = (mi, mi) if int4 else (2 * mi, 2 * mi + 1)
+                for h, (src, j) in enumerate(((lo, jl), (hi, jh))):
+                    a[mi, g + 8 * h, k] = _widen([(int(src) >> (8 * j)) & 0xFF],
+                                                 int4)[0]
+    acc = torch.matmul(a.float(), e.float())                   # (tile, 16, 8)
+    out = torch.zeros((grain, 8))
+    for (lane, mi, h), r in rmap.items():
+        out[r] = acc[mi, lane // 4 + 8 * h]
+    want = torch.matmul(torch.from_numpy(vals.T.astype(np.float32)), e.float())
+    assert torch.equal(out, want)
+
+
 def _fused_setup(dtype):
     """tests/test_fused.py's inputs: block masks of a lattice graph at core
     (2, 2, 2), C 8, q 4, in one dtype; numpy f32 arrays + the port masks."""
