@@ -51,13 +51,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
  10. hold kernels H/I (the int8 / packed-int4 mask-dot pair) against their
      plain versions at the 32^3 b4 core (4,8,8) shapes, on masks that
      block_masks builds from the main path's graph, for every width
-     (gathers bit-equal, scatters within 1e-5 of the summed |terms| and
+     (gathers bit-equal, scatters within 1e-5 of the summed |terms|, both
      identical across two launches); then general-valued masks at small
-     shapes with ragged tails; kernel I bit-equal to its plain version on
-     single-term probe masks (one nonzero of any value per column); the
-     autograd pair against the CPU; time kernel (events and device time),
-     plain version and the torch.bmm yardstick on the pre-widened bf16
-     mask, I at every width, H at C 64;
+     shapes with ragged tails; kernels H and I bit-equal to their plain
+     versions on single-term probe masks (one nonzero of any value per row
+     for H, per column for I; every width and C 80); the autograd pair
+     against the CPU; time kernel (events and device time), plain version
+     and the torch.bmm yardstick on the pre-widened bf16 mask, both at
+     every width;
  11. the --mask_dtype int8 route through its entry points: Trainer with the
      coverage guard, 5 bf16 fit steps and evaluate at 32^3 b4, counting
      launches (H and I run; B-G do not); step time and peak memory; one
@@ -601,8 +602,9 @@ def check_select_kernels(dev, idx64, idx32):
 def check_mask_kernels(dev, idx):
     """Phase 10: kernels H/I against their plain versions at the int8
     route's 32^3 b4 core (4,8,8) shapes on the main path's graph, on
-    general-valued masks with ragged tails, the autograd pair against the
-    CPU, and times.  Returns per-kernel records."""
+    general-valued masks with ragged tails and on single-term probes, each
+    identical across two launches, the autograd pair against the CPU, and
+    times at every width.  Returns per-kernel records."""
     from nbody_tpu_torch.ops import blocked
     from nbody_tpu_torch.ops.kernels import mask_kernels as MK
 
@@ -625,6 +627,7 @@ def check_mask_kernels(dev, idx):
             else m.abs()
         pat, ev = randn((b, nb, p, c)), randn((b, nb, et, c))
         got, want = MK.dot_gather(m, pat), MK.mask_dot_gather_plain(m, pat)
+        gsame = torch.equal(got, MK.dot_gather(m, pat))
         if exact:
             note("mask_dot_gather", float((got - want).abs().max()))
             check(torch.equal(got, want), f"mask_dot_gather {label} C={c} "
@@ -642,30 +645,38 @@ def check_mask_kernels(dev, idx):
         print(f"kernels H/I {label} {tuple(m.shape)} P={p} C={c:>2}: gather "
               + ("bit-equal" if exact else f"worst err - tol {gworst:.3e}")
               + f", scatter max|err| {err:.3e} (worst err - tol {worst:.3e}), "
-              f"same across two launches {same}")
+              f"same across two launches H {gsame} I {same}")
         check(gworst <= 0 and worst <= 0, f"mask_dot {label} C={c} out of tolerance")
+        check(gsame, f"mask_dot_gather {label} C={c} differs between two launches")
         check(same, f"mask_dot_scatter {label} C={c} differs between two launches")
 
-    def probe(shape, c, int4):
-        """Kernel I bit-equal to its plain version on masks with one
-        nonzero of any value per column p: every sum has one term, so a
-        wrong row map shows as a difference that no tolerance hides."""
+    def probe(shape, c, int4, gather):
+        """Kernel H (gather) or I bit-equal to its plain version on masks
+        with one nonzero of any value per row e (H) or column p (I): every
+        sum has one term, so a k permutation that A and B disagree on, a
+        wrong row map or a wrong widening shows as a difference that no
+        tolerance hides."""
         b, nb, et, p = shape
         lo, hi = (-8, 8) if int4 else (-128, 128)
-        rows = torch.randint(0, et, (b, nb, 1, p), generator=g, device=dev)
-        vals = torch.randint(lo, hi, (b, nb, 1, p), generator=g, device=dev,
-                             dtype=torch.int8)
-        m = torch.zeros(shape, dtype=torch.int8, device=dev).scatter_(2, rows, vals)
+        one = (b, nb, et, 1) if gather else (b, nb, 1, p)
+        at = torch.randint(0, p if gather else et, one, generator=g, device=dev)
+        vals = torch.randint(lo, hi, one, generator=g, device=dev, dtype=torch.int8)
+        m = torch.zeros(shape, dtype=torch.int8, device=dev).scatter_(
+            3 if gather else 2, at, vals)
         m = MK.pack_int4(m) if int4 else m
-        ev = randn((b, nb, et, c))
-        got, want = MK.dot_scatter(m, ev), MK.mask_dot_scatter_plain(m, ev)
+        if gather:
+            name, x = "mask_dot_gather", randn((b, nb, p, c))
+            got, want = MK.dot_gather(m, x), MK.mask_dot_gather_plain(m, x)
+        else:
+            name, x = "mask_dot_scatter", randn((b, nb, et, c))
+            got, want = MK.dot_scatter(m, x), MK.mask_dot_scatter_plain(m, x)
         err = float((got - want).abs().max())
-        note("mask_dot_scatter", err)
+        note(name, err)
         label = "int4" if int4 else "int8"
-        print(f"kernel I single-term probe {label} {shape} C={c:>2}: "
-              f"bit-equal {torch.equal(got, want)} (max|err| {err:.3e})")
-        check(torch.equal(got, want), f"mask_dot_scatter probe {label} {shape} "
-                                      f"C={c} not bit-equal")
+        print(f"kernel {'H' if gather else 'I'} single-term probe {label} {shape} "
+              f"C={c:>2}: bit-equal {torch.equal(got, want)} (max|err| {err:.3e})")
+        check(torch.equal(got, want), f"{name} probe {label} {shape} C={c} not "
+                                      "bit-equal")
 
     masks = {mdt: blocked.block_masks(idx, CELLS, WINDOW, dt, MASK_CORE,
                                       drop_self_slot0=True)
@@ -673,9 +684,10 @@ def check_mask_kernels(dev, idx):
     for c in MASK_WIDTHS:
         for mdt, m in masks.items():
             hold(m, c, mdt, True)
-    # dense products: general values in [-3, 3], tails in ET, P and C (P 216
-    # takes the byte loads, P 1152 the 16-byte loads)
-    for shape in ((2, 8, 200, 216), (1, 3, 520, 1152)):
+    # dense products: general values in [-3, 3], tails in ET, P and C (mask
+    # rows of P 54 take the byte loads, P 216 the 4-byte copies, P 1152 the
+    # 16-byte copies or H's TMA boxes)
+    for shape in ((2, 8, 200, 54), (2, 8, 200, 216), (1, 3, 520, 1152)):
         m8 = torch.randint(-3, 4, shape, generator=g, device=dev,
                            dtype=torch.int8)
         for c in (3, 64, 80):
@@ -684,8 +696,11 @@ def check_mask_kernels(dev, idx):
     route_shape = tuple(masks["int8"].shape)
     for int4 in (False, True):
         for c in MASK_WIDTHS + (80,):
-            probe(route_shape, c, int4)
-        probe((2, 8, 200, 216), 3, int4)
+            probe(route_shape, c, int4, False)
+        probe((2, 8, 200, 216), 3, int4, False)
+        for shape in (route_shape, (2, 8, 200, 216), (2, 8, 200, 54)):
+            for c in MASK_WIDTHS + (80,):
+                probe(shape, c, int4, True)
 
     # the autograd pair on 16 blocks, card against the CPU's plain versions
     m = masks["int8"][:, :16].contiguous()
@@ -718,8 +733,7 @@ def check_mask_kernels(dev, idx):
           f"{'f32' if f32_out else 'bf16'} output")
     for name in ("mask_dot_scatter", "mask_dot_gather"):
         scatter = name == "mask_dot_scatter"
-        # every width for I; H at C 64
-        for c in MASK_WIDTHS if scatter else (64,):
+        for c in MASK_WIDTHS:
             x = randn((b, nb, et if scatter else p, c))
             a = wide.transpose(1, 2) if scatter else wide
             xl = x.reshape(b * nb, -1, c)

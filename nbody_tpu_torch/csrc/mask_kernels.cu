@@ -26,13 +26,35 @@
 // 251 GFLOP take ~0.25 ms at the 989 TFLOP/s data-sheet rate, and more at
 // what mma.sync reaches in practice: there the tensor cores bound I too.
 //
-// H (nvcuda::wmma, 16x16x16 bf16 fragments): one CTA of 8 warps per
-// (block, 256-row tile, 64-column tile), blocks' row tiles adjacent in the
-// grid so that the operand of a block stays in L2.  The CTA walks the
-// reduction axis in 64-wide chunks: a mask chunk is loaded with 16-byte
-// accesses, widened to bf16 in registers and stored to shared memory beside
-// the chunk of the operand; the next chunk's loads are issued before the
-// current chunk's products (register double buffering).
+// H (mask_gather_kernel, mma.sync.m16n8k16 bf16 -> f32): one CTA per SM
+// walks the output tiles (block, R rows of ET, all of C <= 64), a block's
+// tiles adjacent so that its patches are served from L2.  R = consumer
+// warps x rows per warp, with the accumulators at <= 128 registers a
+// thread (gather_cfg; the Python wrapper chooses the tiling and the entry
+// checks it): R 1664 at C <= 8, 896 at C 16 and 32, 448 at C 64, so a
+// block's patches are read 2, 4 and 8 times (13 before).  The raw mask
+// bytes stream through a ring of TMA boxes (csrc/tma_ring.cuh): a producer
+// warp issues one 2D box per consumer warp and stage (rows x 64 bytes,
+// swizzled by the span, L2 promotion 128 B, evict-normal) into full/empty
+// mbarriers, and copies the stage's patch rows beside it with cp.async;
+// consumers wait on "full" and arrive on "empty", with no __syncthreads in
+// the loop.  Why TMA (scripts/torch_mask_ring.py, the ring alone, H100):
+// int8 at C 64's tiling ~2.9 TB/s against ~2.2 for kernel I's cp.async
+// ring and ~3.0 for a plain read of the mask; 32-byte stages streamed at
+// most ~2.0.  Mask rows whose bytes are not a multiple of 16 take 4-byte
+// cp.async or byte loads by the producer into the same layout.  For H the
+// mask is A in its stored order, [e][p] = [m][k]: a thread's 32-bit word
+// holds 4 int8 (8 int4) values of one row along p, so the k axis is
+// permuted inside each 16-byte chunk (gather_k_phys) and the producer
+// stores the patch rows in that order, for ldmatrix.trans to read as B.
+// The A fragments are widened from the words in registers with kernel I's
+// helpers (no F2FP, no bf16 mask tile in shared memory), the swizzle
+// keeps the A words free of bank conflicts, and the epilogue stores each
+// accumulator pair as a float2 straight from registers.  Rows past a
+// block's ET come from the next block or arrive as zeros, and land only on
+// rows that are not stored; patch rows past P are zero-filled.  What holds
+// it back (variant timings, PERF.md §6): at C 64 the output tile's stores
+// (436 MB) at the end of each tile, which the ring overlaps only in part.
 //
 // I (mask_scatter_kernel, mma.sync.m16n8k16 bf16 -> f32): one CTA owns R
 // rows of P by up to 64 columns of C, every row of it for C <= 16, so the
@@ -94,12 +116,15 @@
 // roofline (PERF.md has its time against the plain version's).  No model
 // path runs it.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include <cstdint>
 #include <type_traits>
+
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -113,251 +138,6 @@ const int kThreads = kWarps * 32;
 const int kFusedThreads = 1024;
 const int kPad = 8;        // bf16 elements of padding per shared-memory row
 const int kColTile = 64;   // output columns per CTA (4 fragments)
-
-// Kernel H's tile: output rows = e, reduction over p; the mask tile is
-// kTE x kTP entries [e][p].
-struct Tile {
-  static const int kRF = 2;                     // 16-row fragments per warp
-  static const int kRows = kWarps * 16 * kRF;   // 256 output rows per CTA
-  static const int kK = 64;                     // reduction chunk
-  static const int kTE = kRows, kTP = kK;
-};
-
-template <int NF>
-constexpr size_t dot_smem_bytes() {
-  return sizeof(bf16) * (Tile::kTE * (Tile::kTP + kPad) +
-                         Tile::kK * (NF * 16 + kPad)) +
-         sizeof(float) * kWarps * 256;
-}
-
-__device__ __forceinline__ uint32_t bf16_pair(int lo, int hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn((float)lo, (float)hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// one 16-byte mask segment -> bf16 values in shared memory (16 for int8,
-// 32 for int4), sign-extended
-template <bool kInt4>
-__device__ __forceinline__ void widen_store(const uint4& u, bf16* dst) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-  uint4* d = reinterpret_cast<uint4*>(dst);
-  if constexpr (kInt4) {
-    // nibble n of a word is element n: bits [4n, 4n + 4)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      uint32_t o[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        o[k] = bf16_pair((int)(w[i] << (28 - 8 * k)) >> 28,
-                         (int)(w[i] << (24 - 8 * k)) >> 28);
-      }
-      d[i] = make_uint4(o[0], o[1], o[2], o[3]);
-    }
-  } else {
-    uint32_t o[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[2 * i] = bf16_pair((int)(w[i] << 24) >> 24, (int)(w[i] << 16) >> 24);
-      o[2 * i + 1] = bf16_pair((int)(w[i] << 8) >> 24, (int)w[i] >> 24);
-    }
-    d[0] = make_uint4(o[0], o[1], o[2], o[3]);
-    d[1] = make_uint4(o[4], o[5], o[6], o[7]);
-  }
-}
-
-// 16 bytes of mask row e starting at byte `byte`; zero outside the array
-__device__ __forceinline__ uint4 load_mask_seg(const uint8_t* mblk,
-                                               long long rb, int e, int et,
-                                               long long byte, bool vec) {
-  if (e >= et || byte >= rb) return make_uint4(0u, 0u, 0u, 0u);
-  const uint8_t* src = mblk + (long long)e * rb + byte;
-  if (vec) return __ldcs(reinterpret_cast<const uint4*>(src));
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  for (int i = 0; i < 16 && byte + i < rb; ++i) {
-    w[i >> 2] |= (uint32_t)src[i] << (8 * (i & 3));
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// 8 bf16 of operand row k, columns [cc, cc + 8); zero outside the array
-__device__ __forceinline__ uint4 load_x_seg(const bf16* xblk, int c, int k,
-                                            int kext, int cc, bool vec) {
-  if (k >= kext || cc >= c) return make_uint4(0u, 0u, 0u, 0u);
-  const bf16* src = xblk + (long long)k * c + cc;
-  if (vec) return __ldg(reinterpret_cast<const uint4*>(src));
-  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-  uint32_t w[4] = {0u, 0u, 0u, 0u};
-  for (int i = 0; i < 8 && cc + i < c; ++i) {
-    w[i >> 1] |= (uint32_t)s[i] << (16 * (i & 1));
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// CTAs per SM the register budget is cut for: two for int4 H (1.93 -> 1.59
-// ms), one for int8 H, which the cut to 128 registers slowed (2.01 -> 2.52
-// ms; H100, 32^3 b4)
-template <bool kInt4>
-constexpr int dot_min_blocks() { return kInt4 ? 2 : 1; }
-
-template <bool kInt4, int NF>
-__global__ void __launch_bounds__(kThreads, (dot_min_blocks<kInt4>()))
-mask_dot_kernel(const uint8_t* __restrict__ masks, const bf16* __restrict__ x,
-                float* __restrict__ out, int et, int p, int c, int row_tiles,
-                bool vec_m, bool vec_x) {
-  typedef Tile T;
-  constexpr int LDM = T::kTP + kPad;
-  constexpr int LDX = NF * 16 + kPad;
-  constexpr int kSegVals = kInt4 ? 32 : 16;             // mask values / 16 B
-  constexpr int kSegsPerRow = T::kTP / kSegVals;
-  constexpr int kMSegs = T::kTE * kSegsPerRow / kThreads;
-  constexpr int kXRowSegs = NF * 2;
-  constexpr int kXTotal = T::kK * kXRowSegs;
-  constexpr int kXSegs = (kXTotal + kThreads - 1) / kThreads;
-  static_assert(T::kTE * kSegsPerRow % kThreads == 0, "mask tile split");
-
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* mt = reinterpret_cast<bf16*>(smem);                    // [kTE][LDM]
-  bf16* xt = mt + T::kTE * LDM;                                // [kK][LDX]
-  float* stage = reinterpret_cast<float*>(xt + T::kK * LDX);   // [warp][256]
-
-  const long long blk = blockIdx.x / row_tiles;
-  const int row0 = (int)(blockIdx.x - blk * row_tiles) * T::kRows;
-  const int c0 = blockIdx.y * kColTile;
-  const int rows = et;                       // output rows
-  const int kext = p;                        // reduction extent
-  const long long rb = kInt4 ? p / 2 : p;    // mask bytes per row
-  const uint8_t* mblk = masks + blk * et * rb;
-  const bf16* xblk = x + blk * (long long)kext * c;
-  const int nchunks = (kext + T::kK - 1) / T::kK;
-  const int tid = threadIdx.x;
-
-  uint4 mreg[kMSegs];
-  uint4 xreg[kXSegs];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < kMSegs; ++i) {
-      const int s = tid + i * kThreads;
-      const int r = s / kSegsPerRow;
-      const int pv = (s - r * kSegsPerRow) * kSegVals;   // tile column
-      const int e = row0 + r;
-      const long long pg = k0 + pv;
-      mreg[i] = load_mask_seg(mblk, rb, e, et, kInt4 ? pg / 2 : pg, vec_m);
-    }
-#pragma unroll
-    for (int i = 0; i < kXSegs; ++i) {
-      const int s = tid + i * kThreads;
-      if (s < kXTotal) {
-        const int k = s / kXRowSegs;
-        const int j = s - k * kXRowSegs;
-        xreg[i] = load_x_seg(xblk, c, k0 + k, kext, c0 + j * 8, vec_x);
-      }
-    }
-  };
-  auto store = [&]() {
-#pragma unroll
-    for (int i = 0; i < kMSegs; ++i) {
-      const int s = tid + i * kThreads;
-      const int r = s / kSegsPerRow;
-      const int pv = (s - r * kSegsPerRow) * kSegVals;
-      widen_store<kInt4>(mreg[i], mt + r * LDM + pv);
-    }
-#pragma unroll
-    for (int i = 0; i < kXSegs; ++i) {
-      const int s = tid + i * kThreads;
-      if (s < kXTotal) {
-        const int k = s / kXRowSegs;
-        const int j = s - k * kXRowSegs;
-        *reinterpret_cast<uint4*>(xt + k * LDX + j * 8) = xreg[i];
-      }
-    }
-  };
-
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::kRF][NF];
-#pragma unroll
-  for (int rf = 0; rf < T::kRF; ++rf) {
-#pragma unroll
-    for (int nf = 0; nf < NF; ++nf) wmma::fill_fragment(acc[rf][nf], 0.0f);
-  }
-
-  load(0);
-  for (int ch = 0; ch < nchunks; ++ch) {
-    store();
-    __syncthreads();
-    if (ch + 1 < nchunks) load((ch + 1) * T::kK);
-#pragma unroll
-    for (int kk = 0; kk < T::kK / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[NF];
-#pragma unroll
-      for (int nf = 0; nf < NF; ++nf) {
-        wmma::load_matrix_sync(b[nf], xt + kk * 16 * LDX + nf * 16, LDX);
-      }
-#pragma unroll
-      for (int rf = 0; rf < T::kRF; ++rf) {
-        const int r = (warp * T::kRF + rf) * 16;
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, mt + r * LDM + kk * 16, LDM);
-#pragma unroll
-        for (int nf = 0; nf < NF; ++nf) {
-          wmma::mma_sync(acc[rf][nf], a, b[nf], acc[rf][nf]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  float* st = stage + warp * 256;
-  float* oblk = out + blk * rows * (long long)c;
-#pragma unroll
-  for (int rf = 0; rf < T::kRF; ++rf) {
-#pragma unroll
-    for (int nf = 0; nf < NF; ++nf) {
-      wmma::store_matrix_sync(st, acc[rf][nf], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int r0 = row0 + (warp * T::kRF + rf) * 16;
-      const int cc0 = c0 + nf * 16;
-      for (int i = lane; i < 256; i += 32) {
-        const int r = r0 + (i >> 4);
-        const int cc = cc0 + (i & 15);
-        if (r < rows && cc < c) oblk[(long long)r * c + cc] = st[i];
-      }
-      __syncwarp();
-    }
-  }
-}
-
-template <bool kInt4, int NF>
-cudaError_t launch_dot(const uint8_t* masks, const bf16* x, float* out,
-                       long long bnb, int et, int p, int c,
-                       cudaStream_t stream) {
-  typedef Tile T;
-  const int row_tiles = (et + T::kRows - 1) / T::kRows;
-  const size_t smem = dot_smem_bytes<NF>();
-  auto kernel = mask_dot_kernel<kInt4, NF>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long rb = kInt4 ? p / 2 : p;
-  const bool vec_m = rb % 16 == 0 && (uintptr_t)masks % 16 == 0;
-  const bool vec_x = c % 8 == 0 && (uintptr_t)x % 16 == 0;
-  const dim3 grid((unsigned)(bnb * row_tiles),
-                  (unsigned)((c + kColTile - 1) / kColTile));
-  kernel<<<grid, kThreads, smem, stream>>>(masks, x, out, et, p, c, row_tiles,
-                                           vec_m, vec_x);
-  return cudaGetLastError();
-}
-
-template <bool kInt4>
-cudaError_t dot_nf(const uint8_t* masks, const bf16* x, float* out,
-                   long long bnb, int et, int p, int c, cudaStream_t stream) {
-  switch (c > kColTile ? 4 : (c + 15) / 16) {
-    case 1: return launch_dot<kInt4, 1>(masks, x, out, bnb, et, p, c, stream);
-    case 2: return launch_dot<kInt4, 2>(masks, x, out, bnb, et, p, c, stream);
-    case 3: return launch_dot<kInt4, 3>(masks, x, out, bnb, et, p, c, stream);
-    default: return launch_dot<kInt4, 4>(masks, x, out, bnb, et, p, c, stream);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // kernel I
@@ -772,6 +552,385 @@ cudaError_t scatter_nt(const uint8_t* masks, const bf16* x, float* out,
 }
 
 // ---------------------------------------------------------------------------
+// kernel H
+// ---------------------------------------------------------------------------
+
+// Kernel H's configuration per n8 column fragments (nt): rows of ET a
+// consumer warp owns ((rows / 16) * nt * 4 f32 accumulators a thread,
+// <= 128), ring stages, and consumer warps per CTA at most.  Each stage
+// holds kGatherSpan mask bytes of every row of the tile.  Chosen from
+// variant timings on an H100 at the route's shapes (PERF.md §6): 13 warps
+// and 2 stages at C <= 8 (R 1664: a block's patches read twice), 8 warps
+// and 3 stages at C 16 and 7 at C 32 (R 896: four times), 7 warps of 64
+// rows and 4 stages at C 64 (R 448: eight times), where 8 warps spilled.
+// Registers are allocated per SM sub-partition: 13 to 16 warps (the
+// consumers and the producer) leave 128 a thread, 9 to 12 leave 168, 8 or
+// fewer 255.  The ring holds 150-227 KB, one CTA per SM.
+struct GatherCfg {
+  int rows_per_warp, stages, max_warps;
+};
+
+__host__ __device__ constexpr GatherCfg gather_cfg(int nt) {
+  return nt == 1   ? GatherCfg{128, 2, 13}
+         : nt == 2 ? GatherCfg{128, 3, 8}
+         : nt == 4 ? GatherCfg{128, 3, 7}
+                   : GatherCfg{64, 4, 7};
+}
+
+// mask bytes of a row per ring stage: the TMA box's inner extent and its
+// swizzle span (32-byte stages streamed at most ~2.0 TB/s, PERF.md)
+const int kGatherSpan = 64;
+
+// bf16 per row of a stage's patch tile: nt * 8 columns (at least 16), and
+// a pad that lets ldmatrix read 8 consecutive rows without bank conflicts
+__host__ __device__ constexpr int gather_ldx(int nt) {
+  return (nt < 2 ? 2 : nt) * 8 + 8;
+}
+
+const int kSmemAlign = 1024;   // the largest TMA swizzle atom
+
+// dynamic shared memory: the alignment slack, then per stage the mask tile
+// (rows x stage bytes), the patch tile (its rows x gather_ldx bf16) and
+// the stage's two mbarriers
+__host__ __device__ inline size_t gather_smem_bytes(int nt, int rows,
+                                                    bool int4) {
+  const int kp = int4 ? 2 * kGatherSpan : kGatherSpan;
+  return kSmemAlign +
+         (size_t)gather_cfg(nt).stages *
+             ((size_t)rows * kGatherSpan +
+              (size_t)kp * gather_ldx(nt) * sizeof(bf16) + 2 * sizeof(uint64_t));
+}
+
+// Kernel H's k permutation: row l of a stage's patch tile (the mma's k)
+// holds patch row gather_k_phys(l) of the stage.  In each 16-row group
+// (int8) the mma's k slots 2t, 2t + 1, 2t + 8, 2t + 9 of lane t take p =
+// 4t .. 4t + 3, the bytes of the lane's mask word; in each 32-row group
+// (int4) k16 step s takes nibbles 4s, 4s + 2 (slots 2t, 2t + 1) and 4s +
+// 1, 4s + 3 (2t + 8, 2t + 9) of the word that holds p = 8t .. 8t + 7.
+template <bool kInt4>
+__device__ __forceinline__ int gather_k_phys(int l) {
+  const int q = l & 15;
+  if constexpr (kInt4) {
+    return (l & ~31) | (((q & 7) >> 1) << 3) | (((l >> 4) & 1) << 2) |
+           ((q & 1) << 1) | (q >> 3);
+  } else {
+    return (l & ~15) | (((q & 7) >> 1) << 2) | ((q >> 3) << 1) | (q & 1);
+  }
+}
+
+// The A fragments (m16n8k16, row-major) of one m16 tile for k16 step ks
+// of a 16-byte chunk of the stage, from the tile's words of rows g (w0)
+// and g + 8 (w1): the chunk is one k16 step (int8) or two (int4), along
+// gather_k_phys.  int8 widens each byte under the f32 exponent of 2^23 and
+// packs the upper halves; int4 builds bf16x2 words 0x43nn straight from
+// the nibbles (kernel I's helpers).
+template <bool kInt4>
+__device__ __forceinline__ void gather_a_frag(uint32_t w0, uint32_t w1, int ks,
+                                              uint32_t (&a)[4]) {
+  if constexpr (kInt4) {
+    const uint32_t x0 = w0 ^ 0x88888888u, x1 = w1 ^ 0x88888888u;
+    const int sel = ks ? 0x7362 : 0x5140;   // bytes 2ks, 2ks + 1
+    a[0] = int4_pair(x0 & 0x0F0F0F0Fu, sel);
+    a[1] = int4_pair(x1 & 0x0F0F0F0Fu, sel);
+    a[2] = int4_pair((x0 >> 4) & 0x0F0F0F0Fu, sel);
+    a[3] = int4_pair((x1 >> 4) & 0x0F0F0F0Fu, sel);
+  } else {
+    const uint32_t x0 = w0 ^ 0x80808080u, x1 = w1 ^ 0x80808080u;
+    a[0] = __byte_perm(int8_f32(x0, 0), int8_f32(x0, 1), 0x7632);
+    a[1] = __byte_perm(int8_f32(x1, 0), int8_f32(x1, 1), 0x7632);
+    a[2] = __byte_perm(int8_f32(x0, 2), int8_f32(x0, 3), 0x7632);
+    a[3] = __byte_perm(int8_f32(x1, 2), int8_f32(x1, 3), 0x7632);
+  }
+}
+
+// One CTA per SM walks the tiles (block, R-row tile, 64-column tile) in
+// order, a block's tiles adjacent; warps 0 .. warps - 1 consume, the last
+// warp produces.  mask_access: 16 (TMA boxes of the tensor map), 4
+// (4-byte cp.async) or 1 (byte loads), both into the swizzled layout.
+template <bool kInt4, int NT>
+__global__ void __launch_bounds__((gather_cfg(NT).max_warps + 1) * 32, 1)
+mask_gather_kernel(const __grid_constant__ CUtensorMap mask_map,
+                   const uint8_t* __restrict__ masks,
+                   const bf16* __restrict__ x, float* __restrict__ out, int et,
+                   int p, int c, int row_tiles, int col_tiles, long long ntiles,
+                   int mask_access, bool vec_x) {
+  using namespace tma_ring;
+  constexpr GatherCfg kCfg = gather_cfg(NT);
+  constexpr int kRW = kCfg.rows_per_warp;
+  constexpr int kW = kGatherSpan;
+  constexpr int kS = kCfg.stages;
+  constexpr int kMT = kRW / 16;                // m16 tiles a warp
+  constexpr int kKS = kInt4 ? 2 : 1;           // k16 steps a 16-byte chunk
+  constexpr int kKP = kInt4 ? 2 * kW : kW;     // patch rows a stage
+  constexpr int LDX = gather_ldx(NT);
+  static_assert(kRW % 16 == 0 && kRW <= 256, "a warp's rows are one TMA box");
+
+  extern __shared__ unsigned char smem_raw[];
+  const int warps = blockDim.x / 32 - 1;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int rows = warps * kRW;
+  const uint32_t raw_s = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw_s + kSmemAlign - 1) & ~(uint32_t)(kSmemAlign - 1);
+  unsigned char* const smem = smem_raw + (base - raw_s);
+  const int mstage = rows * kW;
+  const int xstage = kKP * LDX * (int)sizeof(bf16);
+  const int xs0 = kS * mstage;                 // byte offsets from base
+  const uint32_t bar0 = base + xs0 + kS * xstage;
+  const long long rb = kInt4 ? p / 2 : p;      // mask bytes per row
+  const int nst = (int)((rb + kW - 1) / kW);
+
+  // full[s]: each producer lane's cp.async arrival and plain arrival, and
+  // lane 0's arrival for the mask tile; empty[s]: one per consumer warp
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(bar0 + 8 * s, 65);
+      mbar_init(bar0 + 8 * (kS + s), warps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  int it = 0;   // stages walked, over tiles
+  if (warp == warps) {
+    uint64_t policy;
+    // evict-normal: the second half of each 128-byte line the TMA promotes
+    // into L2 must stay there for the next stage (evict-first lost it to
+    // the output stores: int8 C 16 1.23 against 0.81 ms, PERF.md)
+    asm volatile("createpolicy.fractional.L2::evict_normal.b64 %0, 1.0;\n"
+                 : "=l"(policy));
+    for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const long long rest = tile / col_tiles;
+      const int c0 = (int)(tile - rest * col_tiles) * kColTile;
+      const long long blk = rest / row_tiles;
+      const int row0 = (int)(rest - blk * row_tiles) * rows;
+      const int live = min(warps, (et - row0 + kRW - 1) / kRW);
+      const uint8_t* mblk = masks + blk * et * rb;
+      const bf16* xblk = x + blk * (long long)p * c;
+      for (int st = 0; st < nst; ++st, ++it) {
+        const int s = it % kS;
+        const uint32_t full = bar0 + 8 * s;
+        mbar_wait(bar0 + 8 * (kS + s), (uint32_t)((it / kS) & 1) ^ 1u);
+        const int ms = s * mstage;
+        if (mask_access == 16) {
+          // one box per warp of live rows; rows past the block's ET come
+          // from the next block (their outputs are not stored), bytes past
+          // the row and rows past the array arrive as zeros
+          if (lane == 0) {
+            mbar_arrive_expect_tx(full, (uint32_t)(live * kRW * kW));
+            for (int w = 0; w < live; ++w) {
+              tma_load_2d(base + ms + w * kRW * kW, &mask_map, st * kW,
+                          (int)(blk * et) + row0 + w * kRW, full, policy);
+            }
+          }
+        } else {
+          constexpr int kCpr = kW / 4;
+          for (int i = lane; i < rows * kCpr; i += 32) {
+            const int r = i / kCpr, j = i - r * kCpr;
+            const long long byte = (long long)st * kW + 4 * j;
+            const bool ok = row0 + r < et && byte < rb;
+            const uint8_t* src = ok ? mblk + (long long)(row0 + r) * rb + byte : masks;
+            const int dst = ms + swizzle<kW>(r * kW + 4 * j);
+            if (mask_access == 4) {
+              cp_async4(base + dst, src, ok ? 4 : 0);
+            } else {
+              uint32_t v = 0u;
+              for (int k = 0; ok && k < 4 && byte + k < rb; ++k) {
+                v |= (uint32_t)src[k] << (8 * k);
+              }
+              *reinterpret_cast<uint32_t*>(smem + dst) = v;
+            }
+          }
+          if (lane == 0) mbar_arrive(full);
+        }
+        // the stage's patch rows in k order, columns [c0, c0 + NT * 8);
+        // zeros past P and C (a zero mask entry times a NaN is NaN)
+        const int xs = xs0 + s * xstage;
+        const int p0 = st * kKP;
+        if (vec_x) {
+          for (int i = lane; i < kKP * NT; i += 32) {
+            const int l = i / NT, j = i - l * NT;
+            const int pr = p0 + gather_k_phys<kInt4>(l);
+            const int cc = c0 + 8 * j;
+            const bool ok = pr < p && cc < c;
+            cp_async16(base + xs + (l * LDX + 8 * j) * (int)sizeof(bf16),
+                       ok ? xblk + (long long)pr * c + cc : x, ok ? 16 : 0);
+          }
+        } else {
+          // rows that are not 16-byte aligned (C 1, 3): 8 loads a lane in
+          // flight, then their stores
+          constexpr int kN = kKP * NT * 8, kB = 8;
+          bf16* xsp = reinterpret_cast<bf16*>(smem + xs);
+          for (int i0 = lane; i0 < kN; i0 += 32 * kB) {
+            bf16 v[kB];
+#pragma unroll
+            for (int q = 0; q < kB; ++q) {
+              const int i = i0 + 32 * q;
+              const int l = i / (NT * 8), k = i - l * (NT * 8);
+              const int pr = p0 + gather_k_phys<kInt4>(l);
+              v[q] = i < kN && pr < p && c0 + k < c
+                         ? xblk[(long long)pr * c + c0 + k]
+                         : __float2bfloat16_rn(0.0f);
+            }
+#pragma unroll
+            for (int q = 0; q < kB; ++q) {
+              const int i = i0 + 32 * q;
+              if (i < kN) xsp[(i / (NT * 8)) * LDX + i % (NT * 8)] = v[q];
+            }
+          }
+        }
+        mbar_arrive_cp_async(full);
+        mbar_arrive(full);
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix(.x4).trans row addresses: lane l gives row l % 8 of matrix
+  // l / 8 (matrices: k 0-7 / 8-15 of n-tile 2u, then of n-tile 2u + 1)
+  const int ld_k = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int ld_n = (lane >> 4) * 8;
+  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const long long rest = tile / col_tiles;
+    const int c0 = (int)(tile - rest * col_tiles) * kColTile;
+    const long long blk = rest / row_tiles;
+    const int row0 = (int)(rest - blk * row_tiles) * rows;
+    // a warp whose rows all lie past ET takes its turns but does not multiply
+    const bool active = row0 + warp * kRW < et;
+    float acc[kMT][NT][4];
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int nj = 0; nj < NT; ++nj)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[mi][nj][q] = 0.0f;
+
+    for (int st = 0; st < nst; ++st, ++it) {
+      const int s = it % kS;
+      mbar_wait(bar0 + 8 * s, (uint32_t)((it / kS) & 1));
+      if (active) {
+        const unsigned char* ms = smem + s * mstage + warp * kRW * kW;
+        const uint32_t xs = base + xs0 + s * xstage;
+#pragma unroll
+        for (int ch = 0; ch < kW / 16; ++ch) {
+          uint32_t w[kMT][2];   // the chunk's words of rows g, g + 8
+#pragma unroll
+          for (int mi = 0; mi < kMT; ++mi) {
+            const int o0 = (mi * 16 + g) * kW + ch * 16 + 4 * t;
+            w[mi][0] = *reinterpret_cast<const uint32_t*>(ms + swizzle<kW>(o0));
+            w[mi][1] =
+                *reinterpret_cast<const uint32_t*>(ms + swizzle<kW>(o0 + 8 * kW));
+          }
+#pragma unroll
+          for (int ks = 0; ks < kKS; ++ks) {
+            uint32_t b[NT][2];
+            const uint32_t brow =
+                xs + ((ch * kKS + ks) * 16 + ld_k) * LDX * (int)sizeof(bf16);
+            if constexpr (NT == 1) {
+              asm volatile(
+                  "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                  : "=r"(b[0][0]), "=r"(b[0][1])
+                  : "r"(brow));
+            } else {
+#pragma unroll
+              for (int u = 0; u < NT / 2; ++u) {
+                asm volatile(
+                    "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+                    "{%0, %1, %2, %3}, [%4];\n"
+                    : "=r"(b[2 * u][0]), "=r"(b[2 * u][1]), "=r"(b[2 * u + 1][0]),
+                      "=r"(b[2 * u + 1][1])
+                    : "r"(brow + (u * 16 + ld_n) * (int)sizeof(bf16)));
+              }
+            }
+#pragma unroll
+            for (int mi = 0; mi < kMT; ++mi) {
+              uint32_t a[4];
+              gather_a_frag<kInt4>(w[mi][0], w[mi][1], ks, a);
+#pragma unroll
+              for (int nj = 0; nj < NT; ++nj)
+                mma_bf16(acc[mi][nj], a, b[nj][0], b[nj][1]);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar0 + 8 * (kS + s));
+    }
+    if (!active) continue;
+
+    // accumulator pair (2h, 2h + 1) of tile (mi, nj): row g + 8h, columns
+    // 2t, 2t + 1; a quad's float2 stores fill one 32-byte sector of a row
+    float* oblk = out + blk * et * (long long)c;
+    const bool pairs = c % 2 == 0;
+#pragma unroll
+    for (int mi = 0; mi < kMT; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + warp * kRW + mi * 16 + g + 8 * h;
+        if (r >= et) continue;
+        float* orow = oblk + (long long)r * c;
+#pragma unroll
+        for (int nj = 0; nj < NT; ++nj) {
+          const int cc = c0 + nj * 8 + 2 * t;
+          const float v0 = acc[mi][nj][2 * h], v1 = acc[mi][nj][2 * h + 1];
+          if (pairs && cc + 1 < c) {
+            *reinterpret_cast<float2*>(orow + cc) = make_float2(v0, v1);
+          } else {
+            if (cc < c) orow[cc] = v0;
+            if (cc + 1 < c) orow[cc + 1] = v1;
+          }
+        }
+      }
+  }
+}
+
+template <bool kInt4, int NT>
+cudaError_t launch_gather(const uint8_t* masks, const bf16* x, float* out,
+                          long long bnb, int et, int p, int c, int warps,
+                          int row_tiles, int smem, int device,
+                          cudaStream_t stream) {
+  const long long rb = kInt4 ? p / 2 : p;
+  const uintptr_t mp = (uintptr_t)masks;
+  const int access = rb > 0 && rb % 16 == 0 && mp % 16 == 0 ? 16
+                     : rb % 4 == 0 && mp % 4 == 0 ? 4 : 1;
+  CUtensorMap map = {};
+  if (access == 16 &&
+      !tma_ring::encode_bytes_2d(&map, masks, (unsigned long long)(bnb * et),
+                                 (unsigned long long)rb, kGatherSpan,
+                                 gather_cfg(NT).rows_per_warp,
+                                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = mask_gather_kernel<kInt4, NT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int col_tiles = (c + kColTile - 1) / kColTile;
+  const long long ntiles = bnb * row_tiles * col_tiles;
+  const bool vec_x = c % 8 == 0 && (uintptr_t)x % 16 == 0;
+  kernel<<<(unsigned)(ntiles < sms ? ntiles : sms), (warps + 1) * 32, smem,
+           stream>>>(map, masks, x, out, et, p, c, row_tiles, col_tiles, ntiles,
+                     access, vec_x);
+  return cudaGetLastError();
+}
+
+template <bool kInt4>
+cudaError_t gather_nt_launch(const uint8_t* masks, const bf16* x, float* out,
+                             long long bnb, int et, int p, int c, int nt,
+                             int warps, int row_tiles, int smem, int device,
+                             cudaStream_t stream) {
+  switch (nt) {
+    case 1: return launch_gather<kInt4, 1>(masks, x, out, bnb, et, p, c, warps, row_tiles, smem, device, stream);
+    case 2: return launch_gather<kInt4, 2>(masks, x, out, bnb, et, p, c, warps, row_tiles, smem, device, stream);
+    case 4: return launch_gather<kInt4, 4>(masks, x, out, bnb, et, p, c, warps, row_tiles, smem, device, stream);
+    default: return launch_gather<kInt4, 8>(masks, x, out, bnb, et, p, c, warps, row_tiles, smem, device, stream);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // kernel J
 // ---------------------------------------------------------------------------
 
@@ -1088,19 +1247,37 @@ bool fused_use_tc(int p, int c, int q, int elem, int device) {
 
 // Kernel H.  masks (bnb, et, p) int8 (is_int4 = 0) or (bnb, et, p / 2)
 // packed int4 (is_int4 = 1; p even); patches (bnb, p, c) bf16 -> out
-// (bnb, et, c) f32.  Every output element is written.  Returns
-// cudaGetLastError() after the launch.
+// (bnb, et, c) f32.  The tiling comes from the wrapper (mask_kernels.
+// gather_tiling): nt n8 column fragments, rows_per_warp, consumer warps
+// per CTA, row_tiles per block, the ring's stages and its dynamic shared
+// memory; a tiling that differs from what this kernel
+// computes, or does not cover ET, is refused with cudaErrorInvalidValue,
+// as is bnb * et past 2^31 - 1 (the tensor map's row coordinate).  Every
+// output element is written.
 extern "C" int mask_dot_gather(const void* masks, const void* x, float* out,
                                long long bnb, int et, int p, int c,
-                               int is_int4, int device, cudaStream_t stream) {
+                               int is_int4, int nt, int rows_per_warp,
+                               int warps, int row_tiles, int stages, int smem,
+                               int device, cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (bnb == 0 || c == 0 || et == 0) return cudaSuccess;
-  if (is_int4 && p % 2) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)warps * rows_per_warp;
+  const GatherCfg cfg = gather_cfg(nt);
+  // nt: kernel I's column fragments for C (scatter_nt)
+  if ((is_int4 && p % 2) || nt != scatter_nt(c) ||
+      rows_per_warp != cfg.rows_per_warp || stages != cfg.stages || warps < 1 || warps > cfg.max_warps ||
+      row_tiles < 1 || rows * row_tiles < et || rows * (row_tiles - 1) >= et ||
+      bnb * et > 0x7fffffffLL ||
+      (size_t)smem != gather_smem_bytes(nt, (int)rows, is_int4)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const uint8_t* m = (const uint8_t*)masks;
   const bf16* xv = (const bf16*)x;
-  err = is_int4 ? dot_nf<true>(m, xv, out, bnb, et, p, c, stream)
-                : dot_nf<false>(m, xv, out, bnb, et, p, c, stream);
+  err = is_int4 ? gather_nt_launch<true>(m, xv, out, bnb, et, p, c, nt, warps,
+                                         row_tiles, smem, device, stream)
+                : gather_nt_launch<false>(m, xv, out, bnb, et, p, c, nt, warps,
+                                          row_tiles, smem, device, stream);
   return (int)err;
 }
 

@@ -20,8 +20,8 @@ cotangent, cast to the primal's dtype; the masks get none
 (mask_kernels.py:105-150).  JAX's ``group`` / ``set_group`` (blocks per
 Pallas grid step, amortizing Mosaic's per-step cost on the TPU) is not
 carried over: on the H100 a CTA per row tile of each block is the grain.
-Kernel I's row tile grows as C shrinks; ``scatter_tiling`` chooses it
-here and the C entry checks it.
+The row tiles of kernels H and I grow as C shrinks; ``gather_tiling``
+and ``scatter_tiling`` choose them here and the C entries check them.
 The kernels are csrc/mask_kernels.cu (the .cu file has the design note);
 each wrapper takes its plain PyTorch version only for a CPU tensor, and
 for a CUDA tensor launches its kernel or raises.
@@ -43,7 +43,8 @@ _INT_MAX = 2 ** 31 - 1
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
-    "mask_dot_gather": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _P),
+    "mask_dot_gather": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _I, _P),
     "mask_dot_scatter": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
     "fused_boundary": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
@@ -139,6 +140,13 @@ def check_masks(masks: torch.Tensor, x: torch.Tensor, transpose: bool, name: str
         raise ValueError(f"{name} kernel takes contiguous masks")
 
 
+def column_frags(c: int) -> int:
+    """n8 column fragments of a CTA at C columns (64 a CTA at most; csrc/
+    mask_kernels.cu: scatter_nt)."""
+    w = min(c, 64)
+    return 8 if w > 32 else 4 if w > 16 else 2 if w > 8 else 1
+
+
 class ScatterTiling(NamedTuple):
     """Kernel I's tiling of one block's output (P, C): `row_tiles` CTAs of
     `warps` x `rows_per_warp` rows of P per 64 columns of C, `nt` n8
@@ -176,24 +184,83 @@ def scatter_cfg(int4: bool, nt: int) -> ScatterCfg:
 
 
 _MASK_PAD, _EDGE_PAD = 16, 8     # csrc/mask_kernels.cu: kMaskPad, kEdgePad
-# f32 accumulators a thread of kernel I holds at most
-SCATTER_ACC_REGS = 128
+# f32 accumulators a thread of kernel H or I holds at most
+SCATTER_ACC_REGS = GATHER_ACC_REGS = 128
+
+
+def _split_rows(n: int, rows_per_warp: int, max_warps: int):
+    """(warps, row tiles): the fewest row tiles of at most max_warps warps
+    that cover n rows, with the warps split evenly over them."""
+    tiles = -(-n // (max_warps * rows_per_warp))
+    return -(-n // (tiles * rows_per_warp)), tiles
 
 
 def scatter_tiling(p: int, c: int, int4: bool) -> ScatterTiling:
     """Kernel I's tiling at patch width P, C columns: row tiles of the
     configuration's warps (at most max_warps) split evenly over P (csrc/
     mask_kernels.cu: scatter_nt, scatter_cfg, scatter_smem_bytes)."""
-    w = min(c, 64)
-    nt = 8 if w > 32 else 4 if w > 16 else 2 if w > 8 else 1
+    nt = column_frags(c)
     cfg = scatter_cfg(int4, nt)
     rw = cfg.rows_per_warp
-    tiles = -(-p // (cfg.max_warps * rw))
-    warps = -(-p // (tiles * rw))
+    warps, tiles = _split_rows(p, rw, cfg.max_warps)
     tile_bytes = warps * rw // (2 if int4 else 1)
     smem = cfg.stages * cfg.edges * (tile_bytes + _MASK_PAD
                                      + 2 * (nt * 8 + _EDGE_PAD))
     return ScatterTiling(nt, rw, warps, tiles, smem)
+
+
+class GatherCfg(NamedTuple):
+    """Kernel H's ring per n8 column fragments (nt): rows of ET a consumer
+    warp owns, stages, consumer warps per CTA at most (csrc/
+    mask_kernels.cu: gather_cfg)."""
+    rows_per_warp: int
+    stages: int
+    max_warps: int
+
+
+def gather_cfg(nt: int) -> GatherCfg:
+    return {1: GatherCfg(128, 2, 13), 2: GatherCfg(128, 3, 8),
+            4: GatherCfg(128, 3, 7)}.get(nt, GatherCfg(64, 4, 7))
+
+
+class GatherTiling(NamedTuple):
+    """Kernel H's tiling of one block's output (ET, C): `row_tiles` tiles
+    of `warps` consumer warps x `rows_per_warp` rows of ET per 64 columns
+    of C, `nt` n8 column fragments each; the ring's stages (GATHER_SPAN
+    mask bytes of each row) and its dynamic shared memory."""
+    nt: int
+    rows_per_warp: int
+    warps: int
+    row_tiles: int
+    stages: int
+    smem_bytes: int
+
+    @property
+    def rows(self) -> int:
+        return self.warps * self.rows_per_warp
+
+
+_SMEM_ALIGN = 1024               # csrc/mask_kernels.cu: kSmemAlign
+GATHER_SPAN = 64                 # csrc/mask_kernels.cu: kGatherSpan
+
+
+def gather_ldx(nt: int) -> int:
+    """bf16 per row of kernel H's patch tile (csrc/mask_kernels.cu)."""
+    return max(nt, 2) * 8 + 8
+
+
+def gather_tiling(et: int, c: int, int4: bool) -> GatherTiling:
+    """Kernel H's tiling at ET mask rows, C columns: row tiles of the
+    configuration's warps (at most max_warps) split evenly over ET (csrc/
+    mask_kernels.cu: gather_cfg, gather_smem_bytes)."""
+    nt = column_frags(c)
+    cfg = gather_cfg(nt)
+    rw = cfg.rows_per_warp
+    warps, tiles = _split_rows(et, rw, cfg.max_warps)
+    patch_rows = GATHER_SPAN * (2 if int4 else 1)
+    smem = _SMEM_ALIGN + cfg.stages * (warps * rw * GATHER_SPAN
+                                       + patch_rows * gather_ldx(nt) * 2 + 16)
+    return GatherTiling(nt, rw, warps, tiles, cfg.stages, smem)
 
 
 def _out(masks, x, rows):
@@ -211,15 +278,18 @@ def dot_gather(masks: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
         return mask_dot_gather_plain(masks, patches)
     b, nb, et = masks.shape[:3]
     p, c = patch_width(masks), patches.shape[3]
-    # one CTA per (block, row tile of 256 rows, 64 columns)
-    if b * nb * (et // 256 + 1) > _INT_MAX or c > 64 * 65535:
+    int4 = masks.dtype == torch.uint8
+    tl = gather_tiling(max(et, 1), c, int4)
+    # the tensor map's row coordinate is an int
+    if b * nb * et > _INT_MAX:
         raise ValueError("mask_dot_gather: too large for one launch")
     patches = patches.contiguous()
     out = _out(masks, patches, et)
     dev = patches.device.index
     err = library().mask_dot_gather(
         masks.data_ptr(), patches.data_ptr(), out.data_ptr(), b * nb, et, p, c,
-        int(masks.dtype == torch.uint8), dev, build.stream(dev))
+        int(int4), tl.nt, tl.rows_per_warp, tl.warps, tl.row_tiles,
+        tl.stages, tl.smem_bytes, dev, build.stream(dev))
     build.check_launch(err, "mask_dot_gather")
     LAUNCHES["mask_dot_gather"] += 1
     return out

@@ -70,10 +70,11 @@ BUCKETS = (
     ("C segment sum", ("segment_sum_kernel",)),
     ("D/F gather", ("select_gather_kernel",)),
     # I: mask_scatter_kernel, or in a tree before it the transposed
-    # instances mask_dot_kernel<true, kInt4, NF>; H: the other instances
+    # instances mask_dot_kernel<true, kInt4, NF>; H: mask_gather_kernel, or
+    # in a tree before it the other mask_dot_kernel instances
     ("I mask scatter", ("mask_scatter_kernel", "mask_dot_kernel<true, true,",
                         "mask_dot_kernel<true, false,")),
-    ("H mask gather", ("mask_dot_kernel",)),
+    ("H mask gather", ("mask_gather_kernel", "mask_dot_kernel")),
     ("C atomic scatter", ("scatter_add_kernel",)),
     ("sort + search", ("adix", "sort", "Sort", "searchsorted")),
     ("matmul", ("gemm", "Gemm", "cutlass", "xmma", "sm90", "cublas", "ampere")),

@@ -333,6 +333,91 @@ def test_scatter_fragments_reproduce_the_product(int4):
     assert torch.equal(out, want)
 
 
+# Kernel H's tiling and fragment arithmetic (csrc/mask_kernels.cu,
+# mask_gather_kernel), checked here because the kernel runs only on a card.
+@pytest.mark.parametrize("et", [200, 3328])
+@pytest.mark.parametrize("p", [216, 1152])
+@pytest.mark.parametrize("c", [1, 3, 16, 32, 64, 80])
+@pytest.mark.parametrize("int4", [False, True])
+def test_gather_tiling_fits(int4, c, p, et):
+    tl = MK.gather_tiling(et, c, int4)
+    cfg = MK.gather_cfg(tl.nt)
+    assert tl.row_tiles * tl.rows >= et > (tl.row_tiles - 1) * tl.rows
+    assert 1 <= tl.warps <= cfg.max_warps and tl.rows_per_warp == cfg.rows_per_warp
+    assert tl.stages == cfg.stages >= 2
+    # a warp's rows are one TMA box (at most 256 rows) of m16 tiles
+    assert tl.rows_per_warp % 16 == 0 and tl.rows_per_warp <= 256
+    assert tl.nt * 8 >= min(c, 64) and tl.nt in (1, 2, 4, 8)
+    # the ring: per stage the mask tile (every row, GATHER_SPAN bytes) and
+    # its patch rows (GATHER_SPAN p values int8, twice as many int4)
+    span = MK.GATHER_SPAN
+    stage = tl.rows * span + span * (2 if int4 else 1) * MK.gather_ldx(tl.nt) * 2
+    assert tl.smem_bytes >= tl.stages * stage and tl.smem_bytes <= SMEM_OPTIN
+    # f32 accumulators a thread, (rows / 16 m-tiles) x nt x 4, within the
+    # budget and 32 under the registers the launch bounds leave a thread
+    # (16,384 per SM sub-partition, the consumer warps and the producer
+    # spread over 4 of them, in steps of 8)
+    per_sp = -(-(cfg.max_warps + 1) // 4)
+    regs = min(255, 16384 // (32 * per_sp) // 8 * 8)
+    assert tl.rows_per_warp // 16 * tl.nt * 4 <= min(MK.GATHER_ACC_REGS, regs - 32)
+    # at the route's shape a block's patches are read once per row tile:
+    # twice at C <= 8, four times at C 16 and 32, eight at C 64
+    if et == 3328 and p == 1152:
+        assert tl.row_tiles <= (2 if c <= 8 else 4 if c <= 32 else 8)
+
+
+def _k_order(int4):
+    """Kernel H's k permutation (gather_k_phys): row l of a stage's patch
+    tile holds patch row order[l] of its 16-row (int8) / 32-row (int4)
+    group."""
+    order = []
+    for l in range(32 if int4 else 16):
+        q = l & 15
+        if int4:
+            order.append(((q & 7) >> 1) * 8 + ((l >> 4) & 1) * 4 + (q & 1) * 2 + (q >> 3))
+        else:
+            order.append(((q & 7) >> 1) * 4 + (q >> 3) * 2 + (q & 1))
+    return order
+
+
+@pytest.mark.parametrize("int4", [False, True])
+def test_gather_fragments_reproduce_the_product(int4):
+    """One warp's 16-byte chunk of one m16 tile, emulated lane by lane as
+    the kernel builds it: the A words from the raw mask bytes, the
+    widening into bf16 pairs, the m16n8k16 fragment layout of each k16 step
+    (one int8, two int4) and the patch rows the producer stores in k order
+    give M . X of the chunk exactly; the k order is a bijection."""
+    order = _k_order(int4)
+    assert sorted(order) == list(range(len(order)))
+    rng = np.random.default_rng(5)
+    k = len(order)                                             # p of the chunk
+    vals = rng.integers(-8, 8, (16, k)) if int4 else rng.integers(-128, 128, (16, k))
+    m = tbl.pack_int4(_t(vals)).numpy() if int4 else vals.astype(np.int8).view(np.uint8)
+    words = np.ascontiguousarray(m).view(np.uint32)            # (16 rows, 4 words)
+    # integer-valued patches: every product and sum is exact in f32
+    x = torch.from_numpy(rng.integers(-8, 9, (k, 8)).astype(np.float32))
+    steps = 2 if int4 else 1
+    a = torch.zeros((steps, 16, 16), dtype=torch.bfloat16)     # (step, row, k slot)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for ks in range(steps):
+            for reg, (row, slot) in enumerate(((g, 2 * t), (g + 8, 2 * t),
+                                               (g, 2 * t + 8), (g + 8, 2 * t + 8))):
+                w = np.uint32(words[row, t])
+                if int4:
+                    xw = int(w ^ np.uint32(0x88888888))
+                    src = (xw >> 4) & 0x0F0F0F0F if reg >= 2 else xw & 0x0F0F0F0F
+                    pair = [(src >> (8 * j)) & 0xFF for j in (2 * ks, 2 * ks + 1)]
+                else:
+                    xw = int(w ^ np.uint32(0x80808080))
+                    pair = [(xw >> (8 * j)) & 0xFF for j in ((0, 1) if reg < 2 else (2, 3))]
+                a[ks, row, slot:slot + 2] = _widen(pair, int4)
+    tile = x[order]                                            # the stage's patch rows
+    got = sum(torch.matmul(a[ks].float(), tile[16 * ks:16 * ks + 16]) for ks in range(steps))
+    want = torch.matmul(torch.from_numpy(vals.astype(np.float32)), x)
+    assert torch.equal(got, want)
+
+
 def _fused_setup(dtype):
     """tests/test_fused.py's inputs: block masks of a lattice graph at core
     (2, 2, 2), C 8, q 4, in one dtype; numpy f32 arrays + the port masks."""
