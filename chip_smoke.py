@@ -29,12 +29,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
   6. hold kernels D-G against their plain versions at the 64^3 index
      route's shapes (cores (4,8,8) and (8,8,8)) and the 32^3 block route's,
      for every width the layers give them: the block plans built on the
-     card equal the CPU's; the gathers D/F bit-equal; the segment sums E
+     card equal the CPU's; the gathers D/F bit-equal (F in f32 and bf16,
+     fast on and off; C 3 too) and identical across two launches, and
+     bit-equal on ragged shapes off their 16-byte paths; the segment sums E
      (f32 and bf16 input) and G (f32 and bf16, fast on and off) bit-equal
      to their CPU plain versions and identical across two launches; both
-     autograd pairs bit-equal to the CPU's; time kernel, plain version and
-     library call (the scatters at every width); lattice_knn bit-equal to
-     its plain version at 64^3 b1;
+     autograd pairs bit-equal to the CPU's; time kernel (events and device
+     time), plain version and library call at every width, with the bound;
+     lattice_knn bit-equal to its plain version at 64^3 b1;
   7. the 64^3 shiftinv_vel path through its entry points: Dataset with
      velocities (6 synthetic 64^3 cubes), Trainer with the coverage guard
      (the host k-d tree search), 4 bf16 fit steps at batch 1 on
@@ -110,6 +112,8 @@ CELLS64 = 64
 # widths the block-selection kernels see on shiftinv_vel: counts, the
 # payload gather (disp + vel), and the channels 9-32-64-64-32-16-6
 SELECT_WIDTHS = (1, 6, 9, 16, 32, 64)
+# and the gathers' on the 32^3 block route too (channels 3-32-64-64-32-16-3)
+GATHER_WIDTHS = (1, 3, 6, 9, 16, 32, 64)
 INDEX_CORES = ((4, 8, 8), (8, 8, 8))
 BLOCK_SRC = "nbody_tpu_torch/csrc/block_kernels.cu"
 MASK_SRC = "nbody_tpu_torch/csrc/mask_kernels.cu"
@@ -455,11 +459,13 @@ def check_select_kernels(dev, idx64, idx32):
         plan_by_core[core] = (plan, p)
         pos = plan.pos
         _, nb, et = pos.shape
-        for c in SELECT_WIDTHS:
+        for c in GATHER_WIDTHS:
             pat = randn((1, nb, p, c), bf)
             got, want = IK.dot_gather(pos, pat), IK.dot_gather_plain(pos, pat)
             note("idx_dot_gather", float((got.float() - want.float()).abs().max()))
             check(torch.equal(got, want), f"idx_dot_gather {core} C={c} not bit-equal")
+            check(torch.equal(got, IK.dot_gather(pos, pat)),
+                  f"idx_dot_gather {core} C={c} differs between two launches")
             for dt in (torch.float32, bf):
                 ev = randn((1, nb, et, c), dt)
                 hold_segment_sum(
@@ -468,14 +474,14 @@ def check_select_kernels(dev, idx64, idx32):
                     f"{core} C={c} {dt}")
             print(f"kernels D/E core {core} (1, {nb}, {et}) P={p} C={c:>2}: "
                   "gather bit-equal; segment sum bit-equal to the CPU (f32 and "
-                  "bf16 input) and identical across launches")
+                  "bf16 input); both identical across launches")
 
     plan32 = blocked.block_index_plan(idx32, CELLS, WINDOW, blocked.CORE)
     pp32 = blocked.patch_size(CELLS, WINDOW, blocked.CORE)
     plan32_cpu = plans(plan32, pp32)
     p32 = plan32.pos
     b, nb, et = p32.shape
-    for c in SELECT_WIDTHS:
+    for c in GATHER_WIDTHS:
         for dt in (torch.float32, bf):
             for fast in (True, False):
                 pat = randn((b, nb, pp32, c), torch.float32).to(dt)
@@ -484,14 +490,42 @@ def check_select_kernels(dev, idx64, idx32):
                 note("block_gather", float((got - want).abs().max()))
                 check(torch.equal(got, want),
                       f"block_gather C={c} {dt} fast={fast} not bit-equal")
+                check(torch.equal(got, BK.block_gather(p32, pat, fast)),
+                      f"block_gather C={c} {dt} fast={fast} differs between "
+                      "two launches")
                 ev = randn((b, nb, et, c), torch.float32).to(dt)
                 hold_segment_sum(
                     "block_scatter", lambda: BK.block_scatter(plan32, ev, pp32, fast),
                     lambda: BK.block_scatter_plain(plan32_cpu, ev.cpu(), pp32, fast),
                     note, f"C={c} {dt} fast={fast}")
         print(f"kernels F/G (4, {nb}, {et}) P={pp32} C={c:>2}: gathers "
-              "bit-equal; segment sums bit-equal to the CPU and identical "
+              "bit-equal; segment sums bit-equal to the CPU; all identical "
               "across launches (f32/bf16 x fast on/off)")
+
+    # ragged shapes off the gathers' 16-byte paths: P 61, ET 203 (ET * C not
+    # whole vectors: one element an access), and C 64 patches 2 bytes past
+    # a 16-byte boundary (16-byte output vectors, elements loaded one by one)
+    rpos = torch.randint(-3, 64, (2, 3, 203), generator=g, device=dev,
+                         dtype=torch.int32)
+    for c in (3, 5):
+        for dt, fast in ((bf, False), (torch.float32, True)):
+            pat = randn((2, 3, 61, c), dt)
+            got, want = BK.block_gather(rpos, pat, fast), BK.block_gather_plain(rpos, pat, fast)
+            check(torch.equal(got, want) and torch.equal(got, BK.block_gather(rpos, pat, fast)),
+                  f"block_gather ragged C={c} {dt} not bit-equal or not repeatable")
+            note("block_gather", float((got.float() - want.float()).abs().max()))
+        got = IK.dot_gather(rpos, pat)
+        check(torch.equal(got, IK.dot_gather_plain(rpos, pat)),
+              f"idx_dot_gather ragged C={c} not bit-equal")
+    n64 = 3 * 61 * 64
+    pat = randn((n64 + 1,), bf)[1:].view(1, 3, 61, 64)
+    tl = BK.gather_tiling(203, 64, 2, pat.data_ptr() % 16 == 0, True)
+    check(tl.path == BK.FLAT, f"misaligned patches take path {tl.path}")
+    got = IK.dot_gather(rpos[:1], pat)
+    check(torch.equal(got, IK.dot_gather_plain(rpos[:1], pat)),
+          "idx_dot_gather on misaligned patches not bit-equal")
+    print("gathers D/F on ragged shapes (P 61, ET 203, C 3 and 5, f32 fast and "
+          "bf16; C 64 patches off a 16-byte boundary): bit-equal, repeatable")
 
     # autograd pairs, card against the CPU's plain versions: bit-equal
     plan, p = plan_by_core[INDEX_CORES[0]]
@@ -538,10 +572,8 @@ def check_select_kernels(dev, idx64, idx32):
     # block route's setting, bf16 and fast), beside their plain versions
     # and one index_add_, per call with CUDA events and, for kernel and
     # library, on the device alone (at narrow widths a call's host work
-    # outlasts its device work); the record keeps C 64 at the default core.  The
-    # gathers at C 64 beside one index_select on precomputed int64 ids (a
-    # position outside the patch reads row 0).  Bounds from this run's
-    # plans and inputs.
+    # outlasts its device work); the record keeps C 64 at the default core.
+    # Bounds from this run's plans and inputs.
     scatters = [("idx_dot_scatter", core, plan, p, 1,
                  lambda pl, x, q: IK.dot_scatter(pl, x, q),
                  lambda pl, x, q: IK.dot_scatter_plain(pl, x, q))
@@ -569,27 +601,38 @@ def check_select_kernels(dev, idx64, idx32):
             if c == 64 and core in (INDEX_CORES[0], blocked.CORE):
                 rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                  bound_ms=b_ms, bound_by=by)
-    c = 64
-    plan, p = plan_by_core[INDEX_CORES[0]]
-    pos = plan.pos
-    gathers = {
-        "idx_dot_gather": (pos, p, randn((1, pos.shape[1], p, c), bf),
-                           IK.dot_gather, IK.dot_gather_plain),
-        "block_gather": (p32, pp32, randn((b, p32.shape[1], pp32, c), bf),
-                         lambda q, x: BK.block_gather(q, x, True),
-                         lambda q, x: BK.block_gather_plain(q, x, True)),
-    }
-    for name, (sel, psize, x, kern, plain) in gathers.items():
-        r = rec[name]
+    # the gathers at every width (D at both cores, F on the block route's
+    # bf16 patches), per call with CUDA events and on the device alone,
+    # beside their plain versions and one index_select on precomputed int64
+    # ids (a position outside the patch reads row 0); the record keeps C 64
+    # at the default core.  Bounds from this run's inputs.
+    gathers = [("idx_dot_gather", core, plan.pos, p, IK.dot_gather,
+                IK.dot_gather_plain) for core, (plan, p) in plan_by_core.items()]
+    gathers.append(("block_gather", blocked.CORE, p32, pp32,
+                    lambda q, x: BK.block_gather(q, x, True),
+                    lambda q, x: BK.block_gather_plain(q, x, True)))
+    for name, core, sel, psize, kern, plain in gathers:
         blocks = sel.shape[0] * sel.shape[1]
         blk = torch.arange(blocks, device=dev).reshape(sel.shape[:2] + (1,))
         valid = (sel >= 0) & (sel < psize)
-        out = kern(sel, x)
-        r["ms"], r["plain_ms"] = cuda_ms(lambda: kern(sel, x)), cuda_ms(lambda: plain(sel, x))
         ids = torch.where(valid, blk * psize + sel, 0).reshape(-1)
-        flat = x.reshape(-1, c)
-        r["library_ms"] = cuda_ms(lambda: flat.index_select(0, ids))
-        set_bound(r, nbytes(sel, x, out))
+        for c in GATHER_WIDTHS:
+            x = randn(tuple(sel.shape[:2]) + (psize, c), bf)
+            out = kern(sel, x)
+            flat = x.reshape(-1, c)
+            ms = cuda_ms(lambda: kern(sel, x))
+            plain_ms = cuda_ms(lambda: plain(sel, x))
+            lib_ms = cuda_ms(lambda: flat.index_select(0, ids))
+            dev_ms = device_ms(lambda: kern(sel, x))
+            b_ms, by = bound(nbytes(sel, x, out))
+            print(f"time {name} core {core} C={c:>2} bf16: kernel {ms:.4f} ms "
+                  f"(device {dev_ms:.4f} ms), plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({by}); device share of "
+                  f"the bound {b_ms / dev_ms:.3f}")
+            if c == 64 and core in (INDEX_CORES[0], blocked.CORE):
+                rec[name].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                 bound_ms=b_ms, bound_by=by)
+    c = 64
     for name, r in rec.items():
         where = (f"64^3 core {INDEX_CORES[0]}" if name.startswith("idx")
                  else "32^3 b4 core (4, 4, 8)")

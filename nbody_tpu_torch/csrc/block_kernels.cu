@@ -19,17 +19,29 @@
 //
 // What bounds them on the H100: memory, at well under 1 FLOP/byte.
 //
-// Gather design: each patch site is read by ET / P (2-4) edges of its
-// block, so one CTA per (batch, block, C tile) stages the block's (P,
-// C_tile) patch tile in shared memory; device memory then sees every patch
-// and output element once.  C is tiled so that a tile fits the
-// shared-memory budget the wrapper chooses (above 48 KB through
-// cudaFuncSetAttribute).  Every access moves a vector of V channels (up to
-// 16 bytes; the wrapper picks the widest V that divides C), and threads
-// walk the tile row-major, so each warp's accesses to the streamed side
-// are contiguous and wide: with one 2-byte element per access the first
-// version of these kernels was bound by memory latency, not bandwidth.
-//
+// Gather design: each thread writes 16-byte vectors of its block's
+// contiguous (ET, C) output -- element i of a block's output is edge
+// i / C, channel i % C -- and reads the patch values straight from device
+// memory.  Each patch site is read by ET / P (2.3-2.9) edges of its block,
+// from L2 after the first: the blocks' CTAs run close in time, so a
+// block's patch (at most ~200 KB) stays in the 50 MB L2 between its reads,
+// and device memory sees every patch and output element about once.  At C
+// a multiple of the vector (8 bf16, 4 f32) a vector is one 16-byte load of
+// a patch row piece; at C 1-9 (rows of 2-36 bytes) its elements are loaded
+// one by one, each thread stepping edge and channel without division.
+// Two thirds of the bytes are the output's, so what counts is stores in
+// flight: up to 2,048 threads an SM, no shared memory, no barriers.
+// Why no shared memory: the first version staged a (block, C tile) per CTA
+// in shared memory in two phases (48 % of the bound at C 64), and a
+// persistent ring of TMA-fed patch tiles (scripts/gather_ring.cu) reached
+// 64 % at F's C 64 and under 16 % at D's C-tiled C 64, where this kernel
+// reaches 88-97 % (H100 80GB HBM3 at 700 W, PERF.md): the ring's eight
+// consumer warps an SM could not keep enough stores in flight, and its C
+// tiles' half rows were written apart.  The ring was faster only at C 3-9,
+// by 1-5 us a call.
+// Shapes off every path (a base or ET * C not a multiple of 16 bytes) take
+// one element per access.
+
 // Scatter design: the segment sum of segment_sum.cuh over the step's block
 // plan (ops/kernels/block_kernels.py : block_plan): the flat edge ids
 // blk*ET + e (blk = b*NB + n) sorted by patch site blk*P + pos, ties by
@@ -60,8 +72,6 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-const int kThreads = 256;
-
 // V channels of one row, moved as one aligned access
 template <typename T, int V>
 struct alignas(sizeof(T) * V) Vec {
@@ -71,106 +81,153 @@ struct alignas(sizeof(T) * V) Vec {
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-__device__ __forceinline__ void set_zero(float& x) { x = 0.0f; }
-__device__ __forceinline__ void set_zero(bf16& x) { x = __float2bfloat16_rn(0.0f); }
 
-template <typename T, int V, bool kRound>
-__global__ void __launch_bounds__(kThreads)
-select_gather_kernel(const T* __restrict__ patches,
-                     const int32_t* __restrict__ pos, T* __restrict__ out,
-                     int p, int et, int c, int ct) {
-  typedef Vec<T, V> U;
-  extern __shared__ __align__(16) unsigned char smem[];
-  U* tile = reinterpret_cast<U*>(smem);
-  const long long blk = blockIdx.x;            // flat (batch, block)
-  const int c0 = blockIdx.y * ct;
-  const int cw = min(ct, c - c0) / V;          // vectors per tile row
-  const int cu = c / V;                        // vectors per row
-  const U* src = reinterpret_cast<const U*>(patches + blk * p * (long long)c + c0);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < p * cw; i += blockDim.x) {
-    const int r = i / cw;
-    U u = src[(long long)r * cu + (i - r * cw)];
-    if constexpr (kRound) {
-#pragma unroll
-      for (int k = 0; k < V; ++k) u.v[k] = round_bf16(u.v[k]);
-    }
-    tile[i] = u;
-  }
-  __syncthreads();
-  U zero;
-#pragma unroll
-  for (int k = 0; k < V; ++k) set_zero(zero.v[k]);
-  const int32_t* pp = pos + blk * et;
-  U* dst = reinterpret_cast<U*>(out + blk * et * (long long)c + c0);
-#pragma unroll 4
-  for (int i = threadIdx.x; i < et * cw; i += blockDim.x) {
-    const int e = i / cw;
-    const int j = i - e * cw;
-    const int q = __ldg(pp + e);
-    dst[(long long)e * cu + j] = (q >= 0 && q < p) ? tile[q * cw + j] : zero;
-  }
+// ---------------------------------------------------------------------------
+// kernels D and F: the patch gather
+// ---------------------------------------------------------------------------
+
+const int kGatherThreads = 256;
+
+// a launch's accesses (block_kernels.gather_tiling): 16-byte row pieces,
+// 16-byte vectors of elements, or single elements
+enum Path { kRows = 0, kFlat = 1, kScalar = 2 };
+
+// where row q of a block's patch lies: the kernel's one patch source (the
+// patches tensor, P rows of C per block)
+template <typename T>
+__device__ __forceinline__ const T* patch_row(const T* patches, long long blk,
+                                              int p, int c, int q) {
+  return patches + (blk * p + q) * (long long)c;
 }
 
-struct Shape {
-  long long bnb;   // batch * blocks
-  int p, et, c;    // patch sites, edges per block, channels
-  int ct;          // channels per CTA (a multiple of the vector width)
-};
-
-template <typename T, int V, bool kRound>
-cudaError_t launch_gather(const void* patches, const int32_t* pos, void* out,
-                          const Shape& s, cudaStream_t stream) {
-  if (s.bnb == 0 || s.et == 0 || s.c == 0) return cudaSuccess;
-  const size_t smem = (size_t)s.p * s.ct * sizeof(T);
-  auto kernel = select_gather_kernel<T, V, kRound>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((unsigned)s.bnb, (unsigned)((s.c + s.ct - 1) / s.ct));
-  kernel<<<grid, kThreads, smem, stream>>>((const T*)patches, pos, (T*)out,
-                                           s.p, s.et, s.c, s.ct);
-  return cudaGetLastError();
-}
-
-// the vector widths: 1, 2, 4 (f32 and bf16) and 8 (bf16), 16 bytes at most
+// one patch element as it leaves for the output (kRound: f32 rounded to bf16)
 template <typename T, bool kRound>
-cudaError_t gather_vec(int vec, const void* patches, const int32_t* pos,
-                       void* out, const Shape& s, cudaStream_t stream) {
-  switch (vec) {
-    case 1: return launch_gather<T, 1, kRound>(patches, pos, out, s, stream);
-    case 2: return launch_gather<T, 2, kRound>(patches, pos, out, s, stream);
-    case 4: return launch_gather<T, 4, kRound>(patches, pos, out, s, stream);
-    case 8:
-      if constexpr (sizeof(T) == 2) {
-        return launch_gather<T, 8, kRound>(patches, pos, out, s, stream);
-      }
-      return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
+__device__ __forceinline__ T take(const T* p) {
+  const T v = __ldg(p);
+  if constexpr (kRound) return round_bf16(v);
+  return v;
+}
+
+// CTA x of a block's `chunks` takes accesses x * 256 + tid, stepping by
+// chunks * 256 (block_kernels.GATHER_PER_THREAD a thread, as the wrapper
+// sizes chunks).
+template <typename T, bool kRound>
+__global__ void __launch_bounds__(kGatherThreads)
+patch_gather_kernel(const T* __restrict__ patches,
+                    const int32_t* __restrict__ pos, T* __restrict__ out,
+                    int p, int et, int c, int chunks, Path path) {
+  constexpr int V = 16 / sizeof(T);
+  typedef Vec<T, V> U;
+  const long long blk = blockIdx.x / chunks;
+  const int first = (int)(blockIdx.x - blk * chunks) * kGatherThreads + threadIdx.x;
+  const int step = chunks * kGatherThreads;
+  const int32_t* pp = pos + blk * et;
+  T* oblk = out + blk * et * (long long)c;
+  T zero;
+  if constexpr (sizeof(T) == 2) {
+    zero = __float2bfloat16_rn(0.0f);
+  } else {
+    zero = 0.0f;
   }
+  if (path == kRows) {
+    // C a multiple of V: vector i is a 16-byte piece of edge i*V / C's row
+    U* ov = reinterpret_cast<U*>(oblk);
+    for (int i = first; i < et * c / V; i += step) {
+      const int e = i * V / c;
+      const int q = __ldg(pp + e);
+      U u;
+      if ((unsigned)q < (unsigned)p) {
+        const int4 w = __ldg(reinterpret_cast<const int4*>(
+            patch_row(patches, blk, p, c, q) + (i * V - e * c)));
+        u = *reinterpret_cast<const U*>(&w);
+        if constexpr (kRound) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) u.v[j] = round_bf16(u.v[j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) u.v[j] = zero;
+      }
+      ov[i] = u;
+    }
+  } else if (path == kFlat) {
+    // C 1-9 on the paths (or patches off a 16-byte boundary): vector i
+    // holds elements i*V .. i*V + V - 1, edge by edge
+    U* ov = reinterpret_cast<U*>(oblk);
+    for (int i = first; i < et * c / V; i += step) {
+      int e = i * V / c, ch = i * V - e * c;
+      int q = __ldg(pp + e);
+      U u;
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        u.v[j] = (unsigned)q < (unsigned)p
+                     ? take<T, kRound>(patch_row(patches, blk, p, c, q) + ch)
+                     : zero;
+        if (++ch == c) {
+          ch = 0;
+          if (++e < et) q = __ldg(pp + e);
+        }
+      }
+      ov[i] = u;
+    }
+  } else {
+    for (int i = first; i < et * c; i += step) {
+      const int e = i / c, ch = i - e * c;
+      const int q = __ldg(pp + e);
+      oblk[i] = (unsigned)q < (unsigned)p
+                    ? take<T, kRound>(patch_row(patches, blk, p, c, q) + ch)
+                    : zero;
+    }
+  }
+}
+
+template <typename T, bool kRound>
+cudaError_t launch_gather(const void* patches, const int32_t* pos, void* out,
+                          long long bnb, int p, int et, int c, int chunks,
+                          Path path, cudaStream_t stream) {
+  patch_gather_kernel<T, kRound><<<(unsigned)(bnb * chunks), kGatherThreads, 0,
+                                   stream>>>((const T*)patches, pos, (T*)out,
+                                             p, et, c, chunks, path);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// patches (bnb, p, c) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1), pos (bnb, et)
-// int32 -> out (bnb, et, c) in the same dtype.  ct: channels per CTA
-// (shared memory p * ct * element size); vec: channels per access, dividing
-// c and ct (the buffers aligned to vec elements).  round_bf16 rounds f32
-// input to bf16 first.  Returns cudaGetLastError() after the launch.
+// Kernels D and F.  patches (bnb, p, c) f32 (is_bf16 = 0) or bf16 (is_bf16
+// = 1), pos (bnb, et) int32 -> out (bnb, et, c) in the same dtype; a
+// position outside [0, p) reads 0.  round_bf16 rounds f32 input to bf16.
+// The tiling comes from the wrapper (block_kernels.gather_tiling): the
+// access path (0: 16-byte row pieces, C a multiple of the vector and both
+// buffers 16-byte aligned; 1: 16-byte vectors of elements, ET * C a
+// multiple of the vector and the output aligned; 2: single elements) and
+// the CTAs per block; one the shapes or buffers do not allow, or a grid
+// past 2^31 - 1 CTAs, is refused with cudaErrorInvalidValue.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int block_select_gather(const void* patches, const int32_t* pos,
                                    void* out, long long bnb, int p, int et,
-                                   int c, int ct, int vec, int is_bf16,
+                                   int c, int path, int chunks, int is_bf16,
                                    int round_bf16, int device,
                                    cudaStream_t stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const Shape s{bnb, p, et, c, ct};
+  if (bnb == 0 || et == 0 || c == 0) return cudaSuccess;
+  const int vec = is_bf16 ? 8 : 4;
+  const bool out16 = (uintptr_t)out % 16 == 0;
+  const bool ok =
+      path == kRows     ? c % vec == 0 && (uintptr_t)patches % 16 == 0 && out16
+      : path == kFlat   ? (long long)et * c % vec == 0 && out16
+      : path == kScalar;
+  if (!ok || chunks < 1 || bnb * chunks > 0x7fffffffLL ||
+      (long long)p * c > 0x7fffffffLL || (long long)et * c > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Path pa = (Path)path;
   if (is_bf16) {
-    err = gather_vec<bf16, false>(vec, patches, pos, out, s, stream);
+    err = launch_gather<bf16, false>(patches, pos, out, bnb, p, et, c, chunks, pa, stream);
   } else if (round_bf16) {
-    err = gather_vec<float, true>(vec, patches, pos, out, s, stream);
+    err = launch_gather<float, true>(patches, pos, out, bnb, p, et, c, chunks, pa, stream);
   } else {
-    err = gather_vec<float, false>(vec, patches, pos, out, s, stream);
+    err = launch_gather<float, false>(patches, pos, out, bnb, p, et, c, chunks, pa, stream);
   }
   return (int)err;
 }
@@ -203,14 +260,4 @@ extern "C" int block_select_scatter(const void* vals, const int32_t* order,
         vec, vals, order, offsets, out, rows, edges, c, stream);
   }
   return (int)err;
-}
-
-// Largest dynamic shared memory one block may opt in to on `device`.
-extern "C" int block_select_max_smem(int device) {
-  int v = 0;
-  if (cudaDeviceGetAttribute(&v, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                             device) != cudaSuccess) {
-    return 0;
-  }
-  return v;
 }

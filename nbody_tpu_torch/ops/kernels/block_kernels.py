@@ -21,9 +21,10 @@ plain torch: index bookkeeping, not a kernel of the TPU package).  They
 accumulate in f32 in ascending edge order: bit-equal to their plain
 versions on the CPU, whose index_add_ adds in the same order.
 
-On the H100 both are memory-bound; the gather's CTAs stage one block's
-patch tile in shared memory, the scatter's threads own output rows
-(design note in the .cu file).
+On the H100 both are memory-bound; the gather's threads store 16-byte
+vectors of the output at every width and read the patches through L2, the
+scatter's threads own output rows (design note in the .cu file).  The
+gather's tiling (``gather_tiling``) is chosen here and checked in C.
 
 Each wrapper takes its plain PyTorch version only for a CPU tensor; for a
 CUDA tensor it launches its kernel or raises.
@@ -32,7 +33,7 @@ CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, NamedTuple
+from typing import NamedTuple
 
 import torch
 
@@ -43,18 +44,12 @@ from nbody_tpu_torch.ops.kernels.banded_kernels import (plan_sum_plain,
 # launches of the CUDA kernels in this process (reset by callers that count)
 LAUNCHES = {"block_gather": 0, "block_scatter": 0}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# shared memory one gather CTA stages: two fit an SM's 228 KB, whose wider
-# tiles beat a third CTA (measured on an H100 at the 64^3 index shapes)
-GATHER_SMEM = 113 * 1024
-# per device: the largest shared memory one CTA may opt in to
-_MAX_SMEM: Dict[int, int] = {}
 _INT_MAX = 2 ** 31 - 1
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 _SIGNATURES = {
     "block_select_gather": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "block_select_scatter": (_P, _P, _P, _P, _L, _L, _L, _I, _I, _I, _I, _P),
-    "block_select_max_smem": (_I,),
 }
 
 
@@ -103,12 +98,38 @@ def block_plan(pos: torch.Tensor, p_size: int) -> BlockPlan:
     return BlockPlan(pos, *sorted_segments(keys, b * nb * p_size))
 
 
-def c_tile(p: int, c: int, elem_bytes: int, budget: int) -> int:
-    """Channels per gather CTA: C split into the fewest equal tiles whose
-    (P, tile) shared-memory array fits `budget` bytes (at least 1 channel)."""
-    ct_max = max(1, budget // (p * elem_bytes))
-    tiles = -(-c // ct_max)
-    return -(-c // tiles)
+GATHER_THREADS = 256     # csrc/block_kernels.cu: kGatherThreads
+GATHER_PER_THREAD = 4    # accesses a gather thread makes at most
+ROWS, FLAT, SCALAR = 0, 1, 2   # the gather's access paths (csrc: Path)
+
+
+class GatherTiling(NamedTuple):
+    """Kernels D and F's launch: the access `path` (ROWS: 16-byte pieces
+    of patch rows, at C a multiple of the 16-byte vector; FLAT: 16-byte
+    vectors of the block's contiguous (ET, C) output assembled element by
+    element; SCALAR: one element an access) and `chunks` CTAs of
+    GATHER_THREADS per block, each thread making at most GATHER_PER_THREAD
+    accesses."""
+    path: int
+    chunks: int
+
+
+def gather_tiling(et: int, c: int, elem: int, patches_aligned: bool,
+                  out_aligned: bool) -> GatherTiling:
+    """Kernels D and F's launch at ET edges, C channels of `elem` bytes
+    (csrc/block_kernels.cu checks it): 16-byte accesses wherever the shapes
+    and the buffers' 16-byte alignment allow them -- at every path's
+    width -- and as many CTAs per block as GATHER_PER_THREAD accesses a
+    thread need."""
+    v = 16 // elem
+    if c % v == 0 and patches_aligned and out_aligned:
+        path = ROWS
+    elif et * c % v == 0 and out_aligned:
+        path = FLAT
+    else:
+        path, v = SCALAR, 1
+    per_cta = GATHER_THREADS * GATHER_PER_THREAD
+    return GatherTiling(path, max(1, -(-(et * c // v) // per_cta)))
 
 
 # ---------------------------------------------------------------------------
@@ -213,21 +234,6 @@ def vector_width(c: int, elem_bytes: int, *ptrs: int) -> int:
     return 1
 
 
-def _tiling(p: int, c: int, tile_elem: int, vec: int, budget: int,
-            device: int, name: str) -> int:
-    """Channels per CTA: c_tile over vectors of `vec` channels, checked
-    against the card's shared memory (tile elements of tile_elem bytes)."""
-    ct = c_tile(p, c // vec, tile_elem * vec, budget) * vec
-    limit = _MAX_SMEM.get(device)
-    if limit is None:
-        limit = _MAX_SMEM[device] = library().block_select_max_smem(device)
-    if p * ct * tile_elem > limit:
-        raise ValueError(f"{name}: a patch of {p} sites needs "
-                         f"{p * ct * tile_elem} bytes of shared memory, "
-                         f"over the card's {limit}")
-    return ct
-
-
 def _check_size(name: str, *counts: int):
     if max(counts) > _INT_MAX:
         raise ValueError(f"{name}: too large for one launch")
@@ -240,14 +246,14 @@ def launch_gather(pos: torch.Tensor, patches: torch.Tensor, round_bf16: bool,
     et = pos.shape[2]
     _check_size(name, b * nb, p * c, et * c)
     out = patches.new_empty((b, nb, et, c))
+    tl = gather_tiling(et, c, patches.element_size(), patches.data_ptr() % 16 == 0,
+                       out.data_ptr() % 16 == 0)
+    _check_size(name, b * nb * tl.chunks)
     dev = patches.get_device()
-    elem = patches.element_size()
-    vec = vector_width(c, elem, patches.data_ptr(), out.data_ptr())
-    ct = _tiling(p, c, elem, vec, GATHER_SMEM, dev, name)
     err = library().block_select_gather(
         patches.data_ptr(), pos.data_ptr(), out.data_ptr(), b * nb, p, et, c,
-        ct, vec, int(patches.dtype == torch.bfloat16), int(round_bf16), dev,
-        build.stream(dev))
+        tl.path, tl.chunks, int(patches.dtype == torch.bfloat16),
+        int(round_bf16), dev, build.stream(dev))
     build.check_launch(err, f"block_select_gather ({name})")
     return out
 

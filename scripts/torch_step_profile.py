@@ -68,7 +68,8 @@ BUCKETS = (
     # tagged block_sites (C's is tagged graph_targets)
     ("E/G scatter", ("select_scatter_kernel", "segment_sum_kernel<block_sites")),
     ("C segment sum", ("segment_sum_kernel",)),
-    ("D/F gather", ("select_gather_kernel",)),
+    # D/F: patch_gather_kernel, or in a tree before it select_gather_kernel
+    ("D/F gather", ("patch_gather_kernel", "select_gather_kernel")),
     # I: mask_scatter_kernel, or in a tree before it the transposed
     # instances mask_dot_kernel<true, kInt4, NF>; H: mask_gather_kernel, or
     # in a tree before it the other mask_dot_kernel instances

@@ -155,6 +155,10 @@ def main() -> int:
     out_s = torch.empty((b, nb, p_index, 1), dtype=torch.float32, device=dev)
     out_g = torch.empty((b, nb, et, 1), dtype=torch.bfloat16, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    # the gather's tiling arguments at C 1: (path, CTAs per block), or in a
+    # tree before gather_tiling (channels per CTA, vector width)
+    gather_args = (BK.gather_tiling(et, 1, 2, True, True)
+                   if hasattr(BK, "gather_tiling") else (1, 1))
     pieces = {
         "check_plan": lambda: BK.check_plan(index, x, p_index, "idx_dot_scatter"),
         "check_select": lambda: BK.check_select(index.pos, pat, "idx_dot_gather"),
@@ -167,13 +171,12 @@ def main() -> int:
         "current_stream().cuda_stream": lambda: torch.cuda.current_stream(
             x.device).cuda_stream,
         "raw stream": lambda: torch._C._cuda_getCurrentRawStream(0),
-        "max_smem query": lambda: lib.block_select_max_smem(0),
         "C entry, scatter": lambda: lib.block_select_scatter(
             x.data_ptr(), index.order.data_ptr(), index.offsets.data_ptr(),
             out_s.data_ptr(), b * nb * p_index, b * nb * et, 1, 1, 1, 0, 0, stream),
         "C entry, gather": lambda: lib.block_select_gather(
             pat.data_ptr(), index.pos.data_ptr(), out_g.data_ptr(), b * nb,
-            p_index, et, 1, 1, 1, 1, 0, 0, stream),
+            p_index, et, 1, *gather_args, 1, 0, 0, stream),
     }
     for piece, fn in pieces.items():
         result["pieces"][piece] = host_us(fn)

@@ -284,16 +284,6 @@ def test_select_wrappers_refuse_bad_inputs():
         tbl.block_geometry(CELLS, W, (3, 4, 4))
 
 
-@pytest.mark.parametrize("p,c,elem,budget,want", [
-    (1728, 64, 2, BK.GATHER_SMEM, 32), (1152, 6, 2, BK.GATHER_SMEM, 6)])
-def test_channel_tile_fits_the_budget(p, c, elem, budget, want):
-    ct = BK.c_tile(p, c, elem, budget)
-    assert ct == want
-    assert p * ct * elem <= budget
-    tiles = -(-c // ct)
-    assert (tiles - 1) * ct < c <= tiles * ct
-
-
 @pytest.mark.parametrize("c,elem,ptr,want", [
     (64, 2, 0, 8), (6, 2, 0, 2), (9, 2, 0, 1), (64, 4, 0, 4), (6, 4, 0, 2),
     (9, 4, 0, 1), (64, 2, 4, 2), (32, 4, 8, 2)])
