@@ -68,10 +68,16 @@ Phases, each fatal on failure (non-zero exit, no result line):
      times; then 3 fit steps with int4, with the same checks;
  12. the same params and batch through the int8 route and the direct
      route in bf16: loss within rtol 3e-2, gradient cosine above 0.998;
- 13. hold kernel J (the fused layer boundary) against boundary_reference
-     at the scripts/bench_fused.py shapes in bf16 and at small shapes in
-     f32 and bf16, through its tensor-core and CUDA-core forms; time
-     kernel and plain version.
+ 13. kernel J (the fused layer boundary) on its slice's path, the
+     scripts/bench_fused.py workload at full size on the main path's graph
+     (bf16 masks, core (4,8,8) at C = q = 32 and at every interior layer
+     boundary of shiftinv, (C, q) = (32, 64), (64, 64), (64, 32), (32, 16),
+     (16, 3), and core (8,8,8) at C = q = 32): one wrapper call each, which
+     must launch J once each; each held against boundary_reference and
+     identical across two launches, timed (events and device) beside its
+     bound and the unfused chain of bf16 torch.matmul calls; then small
+     blocks in f32 (the CUDA-core form) and bf16 (stages that end past ET,
+     C 8, q 3, C = q = 64, f32 weights, a forced cluster of 2).
 The line before the last is {"kernels": [...]}, all eleven kernels with
 their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
 tensor cores); the last line is {"ok": true, "device": {...}}.
@@ -121,6 +127,9 @@ MASK_SRC = "nbody_tpu_torch/csrc/mask_kernels.cu"
 # displacement gather and the channels 3-32-64-64-32-16-3
 MASK_WIDTHS = (1, 3, 16, 32, 64)
 MASK_CORE = (4, 8, 8)
+# kernel J's (C, q) at the interior layer boundaries of shiftinv (channels
+# 3-32-64-64-32-16-3), the bench_fused shape C = q = 32 first
+FUSED_BOUNDARIES = ((32, 32), (32, 64), (64, 64), (64, 32), (32, 16), (16, 3))
 REPO_KERNELS = {
     "lattice_knn": ("nbody_tpu_torch/csrc/topk_kernels.cu",
                     "nbody_tpu/ops/pallas/topk_kernels.py:46"),
@@ -136,7 +145,7 @@ REPO_KERNELS = {
     "block_scatter": (BLOCK_SRC, "nbody_tpu/ops/pallas/block_kernels.py:67"),
     "mask_dot_gather": (MASK_SRC, "nbody_tpu/ops/pallas/mask_kernels.py:112"),
     "mask_dot_scatter": (MASK_SRC, "nbody_tpu/ops/pallas/mask_kernels.py:133"),
-    "fused_boundary_dot": (MASK_SRC,
+    "fused_boundary_dot": ("nbody_tpu_torch/csrc/fused_kernels.cu",
                            "nbody_tpu/ops/pallas/fused_kernels.py:66"),
 }
 
@@ -998,75 +1007,147 @@ def run_int_route(dev, C, dataset, counted):
 
 
 def check_fused(dev, idx):
-    """Phase 13: kernel J against boundary_reference at the
-    scripts/bench_fused.py shapes (32^3 b4 K14 core (4,8,8), C = q = 32,
-    bf16, its operand scales), and on 64 small blocks in f32 and bf16,
-    through both of its forms; times.  Returns (record, launches of the
-    checks)."""
+    """Phase 13: kernel J on its slice's path -- the scripts/bench_fused.py
+    workload at full size on the main path's graph: core (4,8,8) with
+    C = q = 32 and every interior boundary of shiftinv, and core (8,8,8)
+    with C = q = 32, one call of the wrapper each with the launches
+    counted -- held against boundary_reference and identical across two
+    launches; then small blocks: f32 masks (the CUDA-core form), bf16 with
+    row tiles that end past ET and q 3, and a forced cluster of 2; times
+    at every path shape (events and device) beside the bound and the
+    unfused bf16 chain.  Returns (record, launches on the path)."""
     from nbody_tpu_torch.ops import blocked
     from nbody_tpu_torch.ops.kernels import fused_kernels as FK
 
     g = torch.Generator(device=dev).manual_seed(3)
-    rec = {"max_abs_err": 0.0}
-    reset_counts(FK)
+    rec = {"max_abs_err": 0.0, "library_ms": None}
+    bf = torch.bfloat16
+    bf_tol = ((2e-2, 2e-2), (2e-2, 2e-1), (2e-2, 2e-1))
 
-    def randn(shape, dt, scale=1.0):
-        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
-
-    def hold(masks, c, dt, scales, tol, label):
+    def inputs(masks, c, q, dt, scales):
         b, nb, et, p = masks.shape
-        args = (randn((b, nb, p, c), dt, scales[0]),
-                randn((b, nb, et, c), dt, scales[1]),
-                randn((c, c), dt, scales[2]), randn((c, c), dt, scales[2]))
-        _, tc = FK.kernel_form(p, c, c, masks.dtype, dev)
-        label += " tensor-core form" if tc else " CUDA-core form"
-        got = FK.fused_boundary_dot(masks, *args)
+        return tuple((torch.randn(shape, generator=g, device=dev) * sc).to(dt)
+                     for shape, sc in (((b, nb, p, c), scales[0]),
+                                       ((b, nb, et, c), scales[1]),
+                                       ((c, q), scales[2]), ((c, q), scales[2])))
+
+    def hold(masks, args, got, tol, label):
         want = FK.boundary_reference(masks, *args)
-        for i, (name, gv, wv) in enumerate(zip(("act", "h1", "s"), got, want)):
-            rtol, atol = tol[i]
+        for name, gv, wv, (rtol, atol) in zip(("act", "h1", "s"), got, want, tol):
             err = (gv.float() - wv.float()).abs()
             worst = float((err - (atol + rtol * wv.float().abs())).max())
             rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
-            print(f"kernel J {label} {tuple(masks.shape)} C=q={c} {name}: "
-                  f"max|err| {float(err.max()):.3e} (rtol {rtol}, atol {atol}; "
-                  f"worst {worst:.3e})")
-            check(worst <= 0 and gv.dtype == wv.dtype,
+            print(f"kernel J {label} {name}: max|err| {float(err.max()):.3e} "
+                  f"(rtol {rtol}, atol {atol}; worst {worst:.3e})")
+            check(worst <= 0 and gv.dtype == wv.dtype and gv.shape == wv.shape,
                   f"fused_boundary_dot {label} {name} out of tolerance")
-        return args
 
-    bf = torch.bfloat16
-    masks = blocked.block_masks(idx, CELLS, WINDOW, bf, MASK_CORE,
-                                drop_self_slot0=True)
-    args = hold(masks, 32, bf, (1.0, 0.01, 0.1),
-                ((2e-2, 2e-2), (2e-2, 2e-1), (2e-2, 2e-1)), "bfloat16")
-    # both forms on 64 blocks: f32 at core (2,2,2) (P 216; CUDA cores,
-    # exact f32), bf16 at core (2,2,4) (P 288, ET 208: a ragged last row
-    # tile) with C 16 (tensor cores) and C 8 (CUDA cores)
-    bf_tol = ((2e-2, 2e-2), (2e-2, 2e-1), (2e-2, 2e-1))
-    for dt, core, c, tol in ((torch.float32, (2, 2, 2), 16, ((1e-5, 1e-5),) * 3),
-                             (bf, (2, 2, 4), 16, bf_tol), (bf, (2, 2, 4), 8, bf_tol)):
+    def same(call, first, label):
+        again = call()
+        torch.cuda.synchronize()
+        ok = all(torch.equal(x, y) for x, y in zip(first, again))
+        print(f"kernel J {label}: identical across two launches {ok}")
+        check(ok, f"fused_boundary_dot {label} differs between two launches")
+
+    def chain_ms(masks, args):
+        """The unfused chain of bf16 torch.matmul calls (reads the mask
+        twice): the yardstick a fused kernel must beat."""
+        b, nb, et, p = masks.shape
+        pat, a, w1, w2 = args
+        m2 = masks.reshape(b * nb, et, p)
+        mt, p2 = m2.transpose(1, 2), pat.reshape(b * nb, p, -1)
+        a2 = a.reshape(b * nb, et, -1)
+
+        def run():
+            act = torch.relu(torch.matmul(m2, p2) + a2)
+            torch.matmul(act, w1)
+            torch.matmul(mt, torch.matmul(act, w2))
+        return cuda_ms(run, iters=5, warmup=1)
+
+    # the slice's path: at each shape one wrapper call with the count set
+    # to 0 just before and read just after; then its checks and times
+    path = [(MASK_CORE, c, q) for c, q in FUSED_BOUNDARIES] + [((8, 8, 8), 32, 32)]
+    launches = 0
+    masks = None
+    for core, c, q in path:
+        if masks is None or core != MASK_CORE:
+            masks = None
+            torch.cuda.empty_cache()
+            masks = blocked.block_masks(idx, CELLS, WINDOW, bf, core,
+                                        drop_self_slot0=True)
+        args = inputs(masks, c, q, bf, (1.0, 0.01, 0.1))
+        reset_counts(FK)
+        got = FK.fused_boundary_dot(masks, *args)
+        torch.cuda.synchronize()
+        n = FK.LAUNCHES["fused_boundary_dot"]
+        check(n == 1, f"kernel J launched {n} times on one path call")
+        launches += n
+        b, nb, et, p = masks.shape
+        tl = FK.fused_tiling(p, c, q, FK.max_smem(dev))
+        label = (f"core {core} {tuple(masks.shape)} C={c} q={q} (cluster "
+                 f"{tl.cluster}, {tl.warps}+1 warps, {tl.rows}-row stages x "
+                 f"{tl.stages})")
+        hold(masks, args, got, bf_tol, label)
+        call = lambda: FK.fused_boundary_dot(masks, *args)
+        same(call, got, label)
+        ms, dev_ms = cuda_ms(call, iters=5, warmup=1), device_ms(call, iters=5)
+        yard = chain_ms(masks, args)
+        # masks, patches, a_edge, W1, W2 in; act, h1, s out; the two mask
+        # products and the two weight products on the bf16 tensor cores
+        ms_bound, by = bound(nbytes(masks, *args, *got),
+                             2.0 * b * nb * (et * p * c + 2 * et * c * q + et * p * q),
+                             H100_BF16_TC_OPS)
+        print(f"time fused_boundary_dot core {core} C={c} q={q}: kernel {ms:.4f} ms "
+              f"(device {dev_ms:.4f}), bound {ms_bound:.4f} ms ({by}), share "
+              f"{ms_bound / dev_ms:.3f} of the device time; unfused bf16 "
+              f"torch.matmul chain {yard:.4f} ms")
+        if core == MASK_CORE and (c, q) == (32, 32):
+            rec.update(ms=ms, bound_ms=ms_bound, bound_by=by, plain_ms=cuda_ms(
+                lambda: FK.boundary_reference(masks, *args), iters=3, warmup=1))
+            print(f"time fused_boundary_dot bench shape: plain {rec['plain_ms']:.4f} ms")
+        del got, args
+    print(f"kernel J path: {len(path)} shapes, {launches} launches")
+    del masks
+    torch.cuda.empty_cache()
+
+    # small blocks: f32 masks at core (2,2,2) (P 216, ET 104; exact f32 on
+    # the CUDA cores); bf16 at core (2,2,4) (P 288, ET 208) and (2,2,2), with
+    # 32- and 16-row stages that end past ET, C 16 / 8 and q 3; f32 weights;
+    # a cluster of 2 forced at core (2,2,4)
+    for dt, core, c, q, tol in ((torch.float32, (2, 2, 2), 16, 16, ((1e-5, 1e-5),) * 3),
+                                (bf, (2, 2, 4), 16, 16, bf_tol), (bf, (2, 2, 4), 8, 8, bf_tol),
+                                (bf, (2, 2, 2), 16, 3, bf_tol), (bf, (2, 2, 2), 64, 64, bf_tol)):
         small = blocked.block_masks(idx[:1], CELLS, WINDOW, dt, core,
                                     drop_self_slot0=True)[:, :64].contiguous()
-        hold(small, c, dt, (1.0, 1.0, 1.0), tol, str(dt).split(".")[-1])
-    launches = FK.LAUNCHES["fused_boundary_dot"]
-    rec["ms"] = cuda_ms(lambda: FK.fused_boundary_dot(masks, *args), iters=3,
-                        warmup=1)
-    rec["plain_ms"] = cuda_ms(lambda: FK.boundary_reference(masks, *args),
-                              iters=3, warmup=1)
-    # masks, patches, a_edge, W1, W2 in; act, h1, s out; the two mask
-    # products and the two weight products on the bf16 tensor cores; no
-    # one PyTorch call
-    b, nb, et, p = masks.shape
-    c = args[0].shape[-1]
-    q = args[2].shape[-1]
-    rec["library_ms"] = None
-    set_bound(rec, nbytes(masks, *args, *FK.fused_boundary_dot(masks, *args)),
-              2.0 * b * nb * (et * p * c + 2 * et * c * q + et * p * q),
-              H100_BF16_TC_OPS)
-    print(f"time fused_boundary_dot: kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']}; bench_fused shapes {tuple(masks.shape)}, "
-          "C=q=32 bf16)")
+        args = inputs(small, c, q, dt, (1.0, 1.0, 1.0))
+        label = f"{str(dt).split('.')[-1]} core {core} {tuple(small.shape)} C={c} q={q}"
+        got = FK.fused_boundary_dot(small, *args)
+        hold(small, args, got, tol, label)
+        same(lambda: FK.fused_boundary_dot(small, *args), got, label)
+    small = blocked.block_masks(idx[:1], CELLS, WINDOW, bf, (2, 2, 4),
+                                drop_self_slot0=True)[:, :64].contiguous()
+    # bf16 masks with f32 a_edge and weights (the weight products in f32 on
+    # the CUDA cores)
+    pat, a, w1, w2 = inputs(small, 16, 16, torch.float32, (1.0, 1.0, 1.0))
+    args = (pat.to(bf), a, w1, w2)
+    label = "bf16 masks, f32 a_edge and weights, core (2,2,4) C=q=16"
+    got = FK.fused_boundary_dot(small, *args)
+    hold(small, args, got, bf_tol, label)
+    same(lambda: FK.fused_boundary_dot(small, *args), got, label)
+    args = inputs(small, 32, 32, bf, (1.0, 1.0, 1.0))
+    b, nb, et, p = small.shape
+    tl = FK.fused_tiling(p, 32, 32, FK.max_smem(dev), cluster=2)
+
+    def forced():
+        outs = (torch.empty((b, nb, et, 32), dtype=bf, device=dev),
+                torch.empty((b, nb, et, 32), device=dev),
+                torch.empty((b, nb, p, 32), device=dev))
+        FK.launch(FK.library(), tl, small, *args, outs)
+        return outs
+    got = forced()
+    label = f"bf16 core (2,2,4) C=q=32, cluster of {tl.cluster}"
+    hold(small, args, got, bf_tol, label)
+    same(forced, got, label)
     return rec, launches
 
 
@@ -1114,8 +1195,8 @@ def main() -> int:
     from nbody_tpu_torch.data.dataset import Dataset, split_batch
     from nbody_tpu_torch.models.registry import build_model
     from nbody_tpu_torch.ops.kernels import (banded_kernels, block_kernels, build,
-                                             idx_kernels, mask_kernels,
-                                             topk_kernels)
+                                             fused_kernels, idx_kernels,
+                                             mask_kernels, topk_kernels)
     from nbody_tpu_torch.physics.losses import loss_za
     from nbody_tpu_torch.train.trainer import Trainer
 
@@ -1130,7 +1211,8 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     libraries = (topk_kernels.library, banded_kernels.library,
-                 block_kernels.library, mask_kernels.library)
+                 block_kernels.library, mask_kernels.library,
+                 fused_kernels.library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda load: load(), libraries))
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "

@@ -1,7 +1,8 @@
 // A ring of shared-memory stages filled by the Tensor Memory Accelerator:
 // mbarrier and bulk-tensor-copy primitives (PTX, sm_90a) and the host
-// encoder of a 2D tensor map of bytes.  Kernel H (mask_kernels.cu) streams
-// its masks through such a ring; scripts/mask_ring.cu times the ring alone.
+// encoders of a 2D tensor map of bytes and a 3D one of bf16.  Kernels H
+// (mask_kernels.cu) and J (fused_kernels.cu) stream their masks through
+// such a ring; scripts/mask_ring.cu times the ring alone.
 //
 // Protocol: stage s has a "full" and an "empty" mbarrier.  The producer
 // waits on empty[s] with the parity of the previous round (a fresh barrier
@@ -77,6 +78,18 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// box (x, y, z) of a 3D tensor map into shared memory at dst
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int x, int y, int z, uint32_t bar,
+                                            uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.L2::cache_hint [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z), "r"(bar),
+      "l"(policy)
+      : "memory");
+}
+
 // byte offset `off` of a tile whose rows are `span` bytes (32, 64 or 128),
 // stored by TMA with the swizzle of that span: the 16-byte granule index
 // XOR the row's low bits (off bits [4, 4 + log2(span / 16)) ^= bits [7, ...))
@@ -131,6 +144,26 @@ inline bool encode_bytes_2d(CUtensorMap* map, const void* base,
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
                 dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
                 promotion, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A (d2, d1, d0) bf16 array as a 3D tensor map with boxes of box0 x box1
+// x 1 elements, swizzled by 128 bytes (box0 * 2 must be 128); elements
+// outside the array arrive as zeros.  d0 * 2 and the base must be multiples
+// of 16.  Returns false where the encoder refuses the map.
+inline bool encode_bf16_3d(CUtensorMap* map, const void* base,
+                           unsigned long long d0, unsigned long long d1,
+                           unsigned long long d2, int box0, int box1,
+                           CUtensorMapL2promotion promotion) {
+  EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace tma_ring

@@ -47,10 +47,6 @@ _SIGNATURES = {
                         _I, _I, _P),
     "mask_dot_scatter": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _I, _P),
-    "fused_boundary": (_P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _P),
-    "fused_boundary_smem_bytes": (_I, _I, _I, _I, _I, ctypes.POINTER(_I)),
-    "mask_max_smem": (_I,),
 }
 
 
