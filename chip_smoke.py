@@ -77,17 +77,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
      identical across two launches, timed (events and device) beside its
      bound and the unfused chain of bf16 torch.matmul calls; then small
      blocks in f32 (the CUDA-core form) and bf16 (stages that end past ET,
-     C 8, q 3, C = q = 64, f32 weights, a forced cluster of 2).
+     C 8, q 3, C = q = 64, f32 weights, a forced cluster of 2);
+ 14. the run around the step (Trainer.fit_scan: the first step eager on a
+     side stream, then one CUDA graph of the train step replayed once a
+     step): (a) 10 steps of eager fit and of fit_scan (T 5) from two fresh
+     trainers and one minibatch generator, f32 (losses rtol 1e-5, params
+     rtol 1e-5 / atol 1e-6) and bf16 (losses rtol 1e-3), printing whether
+     they are bit-equal; (b) the launches counted during the capture equal
+     the eager step's and STEP_LAUNCHES, replays launch no wrapper, and
+     torch.profiler sees kernels A, B and C once a step in a replayed
+     chunk; (c) ms a step by CUDA events, host ms a step and peak memory,
+     eager and graph, over 20 steps after warm-up, with the device busy
+     time a step (idle share) and the host time of one step on an idle
+     card; (d) the index (64^3
+     shiftinv_vel b1), block, int8 and int4 routes each captured: 3 steps
+     (the eager first, 2 replayed) against 3 eager steps, loss rtol 1e-3;
+     (e) the CLI in-process under a temporary NBODY_EXPERIMENTS_DIR:
+     train --scan 10 -i 20 with device data and -n, eval -n (restores step
+     20, the same median line, the (2, 4, 32768, 3) cube, the baseline
+     line), -r -i 10 (chkpt-30.pt), and --trace of a 3-step run (the
+     kernels' names in the chrome trace).
 The line before the last is {"kernels": [...]}, all eleven kernels with
 their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
 tensor cores); the last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1006,6 +1028,263 @@ def run_int_route(dev, C, dataset, counted):
     return counts8
 
 
+def run_cli(main, argv):
+    """One in-process CLI run; returns its standard output (echoed)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    out = buf.getvalue()
+    print(out, end="")
+    check(rc == 0, f"{main.__module__} {argv} returned {rc}")
+    return out
+
+
+def chunk_times(fn, steps):
+    """(ms a step by CUDA events, host ms a step) of fn, which runs `steps`
+    train steps without a host sync, after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    fn()
+    host = (time.perf_counter() - t0) * 1e3 / steps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps, host
+
+
+def idle_host_ms(fn, reps=5):
+    """Median host milliseconds of one call of fn launched on an idle card
+    (synchronized before each call, not inside it)."""
+    host = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(host))
+
+
+def run_scan(dev, C, dataset, ds64, counted):
+    """Phase 14: the run around the step -- Trainer.fit_scan, one CUDA
+    graph of the train step replayed once a step, against eager fit; its
+    launches, step times and memory; every other route's graph; the CLI's
+    train (scan, device data, -n), eval, -r and --trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbody_tpu_torch.cli import eval as cli_eval
+    from nbody_tpu_torch.cli import train as cli_train
+    from nbody_tpu_torch.data.dataset import split_batch
+    from nbody_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    summary = {}
+
+    def cfg_of(ds, dtype="bfloat16", batch=BATCH, family="shiftinv", **model):
+        channels = C.GRAPH_VEL_CHANNELS if family == "shiftinv_vel" else C.GRAPH_CHANNELS
+        return C.Config(ds.cfg, C.ModelConfig(
+            family=family, channels=tuple(channels), k_neighbors=K, dtype=dtype,
+            knn_window=WINDOW, **model),
+            C.TrainConfig(num_iters=10, batch_size=batch, learn_rate=1e-3,
+                          checkpoint_every=5))
+
+    def flat(trainer):
+        return torch.cat([p.detach().ravel() for p in trainer.model.parameters()])
+
+    def minibatches(ds, n, batch):
+        rng = ds.minibatch_rng()
+        idxs = np.stack([ds.get_minibatch_indices(rng, batch) for _ in range(n)])
+        return torch.as_tensor(ds.X_train[idxs], device=dev)
+
+    def launches():
+        torch.cuda.synchronize()
+        return {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+
+    # (a) graph against eager: 10 steps from two fresh trainers and one
+    # minibatch generator, the losses at steps 5 and 10 and the params
+    for dtype, rtol in (("float32", 1e-5), ("bfloat16", 1e-3)):
+        cfg = cfg_of(dataset, dtype)
+        eager = Trainer(cfg, dev, dataset=dataset)
+        eager.fit(verbose=False)
+        graph = Trainer(cfg, dev, dataset=dataset)
+        graph.fit_scan(scan_chunk=5, verbose=False)
+        le, lg = eager.train_error_history, graph.train_error_history
+        pe, pg = flat(eager), flat(graph)
+        bit = le == lg and bool(torch.equal(pe, pg))
+        rel = max(abs(a - b) / abs(a) for a, b in zip(le, lg))
+        print(f"fit (eager) vs fit_scan (graph, T 5), {dtype}, 10 steps: losses "
+              f"{le} vs {lg}, max rel {rel:.2e}, params max abs diff "
+              f"{float((pe - pg).abs().max()):.3e}; bit-equal: {bit}")
+        check(len(lg) == 2 and rel <= rtol, f"{dtype} graph losses off eager's")
+        check(eager.step == graph.step == 10, "the global step is not 10")
+        if dtype == "float32":
+            check(torch.allclose(pg, pe, rtol=1e-5, atol=1e-6),
+                  "f32 graph params off eager's")
+        summary[f"bit_equal_{dtype}"] = bit
+        del eager, graph
+
+    # (b) launches: a fresh trainer's first scanned step runs eagerly, the
+    # capture follows at the next; replays launch no wrapper
+    cfg = cfg_of(dataset)
+    batches = minibatches(dataset, 20, BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    graph = Trainer(cfg, dev, dataset=dataset)
+    reset_counts(*counted)
+    graph.train_scan.run(batches[:1], 6)
+    warm = launches()
+    reset_counts(*counted)
+    graph.train_scan.run(batches[1:2], 6)
+    captured = launches()
+    reset_counts(*counted)
+    graph.train_scan.run(batches, 6)
+    replayed = launches()
+    print(f"launches: eager first step {warm}; the next step, captured and "
+          f"replayed, {captured}; 20 replayed steps {replayed}")
+    check(all(captured.get(n, 0) == want for n, want in STEP_LAUNCHES.items())
+          and captured == warm, f"the capture launched {captured}, expected "
+                                f"{STEP_LAUNCHES} and the eager step's {warm}")
+    check(not replayed, f"replays launched through the wrappers: {replayed}")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        graph.train_scan.run(batches[:5], 6)
+        torch.cuda.synchronize()
+    kern = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            for n in ("lattice_knn_kernel", "gather_rows_kernel", "segment_sum_kernel"):
+                if n in e.key:
+                    kern[n] = kern.get(n, 0) + e.count
+    print(f"kernels of one replayed chunk of 5 under torch.profiler: {kern}")
+    check(kern == {"lattice_knn_kernel": 5, "gather_rows_kernel": 60,
+                   "segment_sum_kernel": 55},
+          "the replayed graph did not run kernels A, B and C once a step")
+
+    # (c) step times over 20 steps after warm-up, host time, peak memory;
+    # device busy a step (kernel time under torch.profiler) and the host
+    # time of one step launched on an idle card
+    step_ms, host_ms = chunk_times(lambda: graph.train_scan.run(batches, 6), 20)
+    peak, reserved = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    one = lambda: graph.train_scan.run(batches[:1], 6)  # noqa: E731
+    times = {"graph": (step_ms, host_ms, peak, reserved, device_ms(one, 5),
+                       idle_host_ms(one))}
+    del graph, one
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eager = Trainer(cfg, dev, dataset=dataset)
+    xy = [split_batch(batches[i]) for i in range(20)]
+
+    def eager_chunk():
+        for x, y in xy:
+            eager.train_step(x, y)
+
+    step_ms, host_ms = chunk_times(eager_chunk, 20)
+    peak, reserved = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_reserved(dev)
+    one = lambda: eager.train_step(*xy[0])  # noqa: E731
+    times["eager"] = (step_ms, host_ms, peak, reserved, device_ms(one, 5),
+                      idle_host_ms(one))
+    del eager, xy, one
+    for k, (ms, host, pk, rs, busy, host1) in times.items():
+        print(f"train step ({k}, 32^3 b4 K14 w2 bf16, 20 steps after warm-up): "
+              f"{ms:.3f} ms a step (CUDA events), host {host:.3f} ms a step; "
+              f"device busy {busy:.3f} ms a step (idle share "
+              f"{1 - busy / ms:.3f}); one step on an idle card: host "
+              f"{host1:.3f} ms; peak allocated {pk / 2**20:.1f} MiB, reserved "
+              f"{rs / 2**20:.1f} MiB")
+        summary[k] = {"ms": ms, "host_ms": host, "busy_ms": busy,
+                      "idle_share": 1 - busy / ms, "idle_card_host_ms": host1,
+                      "peak_mib": pk / 2**20, "reserved_mib": rs / 2**20}
+
+    # (d) every other route: 3 steps of one chunk (the eager first step,
+    # then 2 graph steps) against 3 eager steps on the same batches
+    routes = (
+        ("index64", ds64, cfg_of(ds64, batch=1, family="shiftinv_vel",
+                                 mask_dtype="index"), INDEX_STEP_LAUNCHES),
+        ("block32", dataset, cfg_of(dataset, neighbor_impl="block"),
+         BLOCK_STEP_LAUNCHES),
+        ("int8", dataset, cfg_of(dataset, mask_dtype="int8"), INT8_STEP_LAUNCHES),
+        ("int4", dataset, cfg_of(dataset, mask_dtype="int4"), INT8_STEP_LAUNCHES))
+    for name, ds, cfg, want in routes:
+        torch.cuda.empty_cache()
+        b = minibatches(ds, 3, cfg.train.batch_size)
+        eager = Trainer(cfg, dev, dataset=ds)
+        ni = eager.num_inputs
+        le = [float(eager.train_step(*split_batch(b[i], ni))) for i in range(3)]
+        del eager
+        graph = Trainer(cfg, dev, dataset=ds)
+        reset_counts(*counted)
+        lg = graph.train_scan.run(b, ni).tolist()
+        counts = launches()
+        rec = graph.model.impl_record
+        rel = max(abs(a - c) / abs(a) for a, c in zip(le, lg))
+        print(f"{name} route {rec}: eager {le} vs graph {lg} (steps 2-3 "
+              f"replayed), max rel {rel:.2e}, bit-equal {le == lg}; launches "
+              f"(eager step + capture) {counts}")
+        check(rel <= 1e-3, f"{name}: graph losses off eager's")
+        check(counts == {n: 2 * v for n, v in want.items()},
+              f"{name}: launched {counts}, expected twice {want}")
+        summary[f"route_{name}"] = "captured"
+        del graph
+
+    # (e) the CLI in-process: train with --scan and device data, eval, -r,
+    # --trace, under a temporary experiments directory
+    flags = ["--model", "shiftinv", "-k", str(K), "--cells", str(CELLS),
+             "--knn_window", str(WINDOW), "--dtype", "bfloat16", "--synthetic",
+             "--samples", "16", "-t", "4", "-b", str(BATCH)]
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    old_env = os.environ.get("NBODY_EXPERIMENTS_DIR")
+    with tempfile.TemporaryDirectory(dir=build_dir) as exp:
+        os.environ["NBODY_EXPERIMENTS_DIR"] = exp
+        try:
+            out = run_cli(cli_train.main, flags + [
+                "--scan", "10", "-i", "20", "--device_data", "on", "-n", "smoke"])
+            root = os.path.join(exp, "ZA-FPM_0_smoke")
+            med = [ln for ln in out.splitlines() if "median :" in ln][-1]
+            check("MODEL NAMED: ZA-FPM_0_smoke" in out
+                  and sorted(os.listdir(os.path.join(root, "Session")))
+                  == ["chkpt-10.pt", "chkpt-20.pt"], "cli.train -n smoke artifacts")
+            out = run_cli(cli_eval.main, flags + ["-n", "smoke"])
+            cube = np.load(os.path.join(root, "Results", "X_0_prediction.npy"))
+            check("Restored checkpoint at step 20" in out, "eval did not restore step 20")
+            check([ln for ln in out.splitlines() if "median :" in ln][-1] == med,
+                  "eval does not reproduce the train run's median")
+            check(cube.shape == (2, 4, CELLS ** 3, 3) and np.isfinite(cube).all(),
+                  f"eval cube {cube.shape}")
+            check(any(ln.startswith("L2 median: model ") for ln in out.splitlines()),
+                  "eval printed no linear-velocity baseline line")
+            out = run_cli(cli_train.main, flags + [
+                "--scan", "10", "-i", "10", "-r", "-n", "smoke"])
+            check("Restored checkpoint at step 20" in out and os.path.exists(
+                os.path.join(root, "Session", "chkpt-30.pt")), "-r did not resume")
+            trace = os.path.join(exp, "trace")
+            run_cli(cli_train.main, flags + [
+                "--scan", "3", "-i", "3", "-n", "smoke_trace", "--trace", trace])
+            with open(os.path.join(trace, "trace.json")) as f:
+                names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+            found = {n: sum(n in e for e in names) for n in (
+                "lattice_knn_kernel", "gather_rows_kernel", "segment_sum_kernel")}
+            print(f"--trace of a 3-step scan run, kernel events: {found}")
+            # 3 steps (the eager first and 2 replays), and the coverage
+            # guard's lattice search
+            check(found == {"lattice_knn_kernel": 4, "gather_rows_kernel": 36,
+                            "segment_sum_kernel": 33},
+                  "the --trace trace does not hold kernels A, B and C of "
+                  "every step")
+        finally:
+            if old_env is None:
+                os.environ.pop("NBODY_EXPERIMENTS_DIR", None)
+            else:
+                os.environ["NBODY_EXPERIMENTS_DIR"] = old_env
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"run around the step (phase 14): {json.dumps(summary)}")
+
+
 def check_fused(dev, idx):
     """Phase 13: kernel J on its slice's path -- the scripts/bench_fused.py
     workload at full size on the main path's graph: core (4,8,8) with
@@ -1319,7 +1598,7 @@ def main() -> int:
     del x64, idx64, want64
     # 7. the 64^3 shiftinv_vel index path
     counts64 = run_vel64(dev, ds64, trainer64, counted)
-    del trainer64, ds64
+    del trainer64
     for n in ("idx_dot_gather", "idx_dot_scatter"):
         counters[n] = counts64[n]
     # 8. the --impl block route
@@ -1338,6 +1617,8 @@ def main() -> int:
     cross_route(dev, C, dataset, "int8")
     # 13. kernel J vs boundary_reference
     rec["fused_boundary_dot"], counters["fused_boundary_dot"] = check_fused(dev, idx0)
+    # 14. the run around the step: fit_scan's CUDA graph, the CLI
+    run_scan(dev, C, dataset, ds64, counted)
 
     kernels = [{"name": n, "route": "cuda", "source": REPO_KERNELS[n][0],
                 "replaces": REPO_KERNELS[n][1], "launches": counters[n],

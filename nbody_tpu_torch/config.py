@@ -3,10 +3,10 @@ nbody_tpu/config.py).
 
 The constants and flag names are the JAX package's.  The dataclasses hold
 only what the port runs; every flag of a path the port does not run yet
-(sharding, ensembles, the scan and device-data loops, streaming, restore,
-tracing, rematerialization, the TPU mask encodings, other model families)
-raises NotImplementedError when set to a non-default value instead of
-being ignored.  ROADMAP.md lists what waits.
+(sharding, ensembles, streaming, rematerialization, the TPU mask
+encodings, other model families) raises NotImplementedError when set to
+a non-default value instead of being ignored.  ROADMAP.md lists what
+waits.
 
 The neighbor routes: ``--impl masked`` (the default) runs the direct
 kernels B/C; with ``--mask_dtype index`` the masked index route (kernels
@@ -85,6 +85,14 @@ def default_data_dir() -> str:
         os.path.join(os.environ.get("HOME", "."), ".Data", "nbody_simulations", "ZA"))
 
 
+def default_experiments_dir() -> str:
+    """Where a run's checkpoints and results land (io_/saver.py), the JAX
+    package's variable and default."""
+    return os.environ.get(
+        "NBODY_EXPERIMENTS_DIR",
+        os.path.join(os.environ.get("HOME", "."), ".Data", "Experiments", "Nbody"))
+
+
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
     """Dataset selection + split (reference Dataset, utils.py:547-621)."""
@@ -126,6 +134,16 @@ class TrainConfig:
     batch_size: int = BATCH_SIZE
     learn_rate: float = LEARN_RATE
     checkpoint_every: int = 250               # reference train.py:29
+    experiments_dir: str = dataclasses.field(default_factory=default_experiments_dir)
+    name: str = ""                            # random constellation tag if empty
+    restore: bool = False
+    # optimizer steps per chunk of fit_scan (one CUDA graph of the step,
+    # replayed); 0 = fit, one eager step at a time
+    scan_chunk: int = 0
+    # "auto" / "on" / "off": keep X_train on the device for fit_scan, so a
+    # chunk ships a (T, b) index block instead of (T, b, N, C) batches;
+    # "auto" when X_train fits NBODY_DEVICE_DATA_CAP_GB (default 6)
+    device_data: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,8 +173,9 @@ def build_parser() -> argparse.ArgumentParser:
     adg("-k", "--kneighbors", type=int, default=NUM_NEIGHBORS, metavar="K",
         help="Number of neighbors in graph model (KNN); K == -1 selects set model")
     adg("-n", "--name", type=str, default="", metavar="name",
-        help="(not ported) name under which the JAX CLI saves the "
-             "checkpoints, error series and result cube")
+        help="Name of the run: its checkpoints, error series, result cube "
+             "and metrics.jsonl go to $NBODY_EXPERIMENTS_DIR/ZA-FPM_<d>_"
+             "<name>; empty picks a random tag")
     adg("-s", "--seed", type=int, default=PARAMS_SEED, metavar="X",
         help="Random seed for parameter initialization")
     adg("-l", "--learnrate", type=float, default=LEARN_RATE, metavar="lr",
@@ -178,10 +197,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="Cube cells per side (particles = cells^3)")
     adg("--samples", type=int, default=NUM_SAMPLES, metavar="S",
         help="Synthetic dataset size (cubes generated when no real data)")
-    adg("-r", "--restore", action="store_true", help="(not ported) restore")
-    adg("--scan", type=int, default=0, metavar="T", help="(not ported)")
+    adg("-r", "--restore", action="store_true",
+        help="Restore the run's latest checkpoint (params, Adam state, "
+             "step) before training")
+    adg("--scan", type=int, default=0, metavar="T",
+        help="Train in chunks of T steps: one CUDA graph of the train step, "
+             "replayed T times a chunk (on the CPU the same step eagerly); "
+             "the host reads the losses once a chunk")
     adg("--device_data", type=str, default="auto",
-        choices=["auto", "on", "off"], help="(not ported)")
+        choices=["auto", "on", "off"],
+        help="With --scan: keep the training set on the device and ship a "
+             "(T, b) index block a chunk instead of batches; 'auto' when "
+             "X_train fits NBODY_DEVICE_DATA_CAP_GB (default 6)")
     adg("--masked_core", type=int, nargs=3, default=None, metavar="D",
         help="Core block shape of the --mask_dtype index|int8|int4 routes "
              "(3 ints); default (4, 8, 8), stepping down to one that tiles "
@@ -214,17 +241,16 @@ def build_parser() -> argparse.ArgumentParser:
     adg("--particle_axis", type=int, default=1, help="(not ported)")
     adg("--platform", type=str, default="cuda", choices=["cuda", "cpu"],
         help="Torch device to run on; cuda fails when no card is present")
-    adg("--trace", type=str, default="", metavar="DIR", help="(not ported)")
+    adg("--trace", type=str, default="", metavar="DIR",
+        help="Write a torch.profiler chrome trace (CPU and CUDA) of the "
+             "training loop into DIR/trace.json")
     return p
 
 
 # flag -> default: a non-default value names a path the port does not run
 _UNPORTED_FLAGS = {
     "ensemble": 0, "data_axis": 1, "particle_axis": 1, "streaming": False,
-    "scan": 0, "device_data": "auto", "restore": False, "trace": "",
     "remat": False,
-    # a name saves checkpoints and artifacts under it (ROADMAP Queue 1)
-    "name": "",
 }
 
 
@@ -279,7 +305,11 @@ def config_from_args(args: argparse.Namespace) -> Config:
     train = TrainConfig(
         num_iters=args.num_iters,
         batch_size=args.batch_size,
-        learn_rate=args.learnrate)
+        learn_rate=args.learnrate,
+        name=args.name,
+        restore=args.restore,
+        scan_chunk=args.scan,
+        device_data=args.device_data)
     return Config(data=data, model=model, train=train)
 
 

@@ -7,21 +7,35 @@ and backward through the CUDA gather / scatter kernels, and applies Adam
 agree).  PyTorch runs eagerly, so the step is a plain function.  The
 device is explicit.
 
+``fit`` runs one eager step at a time.  ``fit_scan`` is the JAX
+trainer's path for long runs: chunks of T steps, each step one replay of
+a CUDA graph of the whole step (``TrainScan``, the Hopper form of
+lax.scan), over batches staged on the device a chunk at a time or sliced
+from a device-resident training set (``device_data``); the host reads
+the losses once a chunk.  For the same minibatch generator both give the
+same losses.
+
 Coverage guard: the JAX trainer only warns when the lattice window cannot
 represent the data; the port refuses, as bench.py:192-199 does.  The exact
-check runs on the first batch of every ``fit``, and the O(N) margin
-monitor at every checkpoint triggers one exact check per episode of
-margin violations.  After the first step the model's effective neighbor
+check runs on the first batch of every ``fit`` / ``fit_scan``, and the
+O(N) margin monitor at every checkpoint (every chunk of ``fit_scan``)
+triggers one exact check per episode of margin violations; both run
+outside the graph.  After the first step the model's effective neighbor
 route (``impl_record``: direct, block, or masked with its core and mask
 dtype, index, int8 or int4) is printed and logged, as _log_effective_impl
-does in JAX.  Sharded, ensemble
-and scan training, saving and restore are not ported yet (ROADMAP.md).
+does in JAX.  With a Saver, every record also goes to metrics.jsonl and
+a checkpoint labelled with the global step is saved every
+``checkpoint_every`` steps of ``fit`` and after every chunk of
+``fit_scan``.  Sharded and ensemble training are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -40,9 +54,14 @@ class CoverageError(RuntimeError):
 
 
 def make_optimizer(model: torch.nn.Module, learn_rate: float) -> torch.optim.Adam:
-    """optax.adam(lr) counterpart: b1 0.9, b2 0.999, eps 1e-8."""
+    """optax.adam(lr) counterpart: b1 0.9, b2 0.999, eps 1e-8.  On the card
+    the update is ``capturable`` (its step count stays on the device, with
+    no host sync), so that a CUDA graph can hold the whole train step;
+    fit and fit_scan run the same update.  ``capturable`` needs CUDA
+    tensors, so on the CPU it stays off."""
+    cuda = next(model.parameters()).is_cuda
     return torch.optim.Adam(model.parameters(), lr=learn_rate,
-                            betas=(0.9, 0.999), eps=1e-8)
+                            betas=(0.9, 0.999), eps=1e-8, capturable=cuda)
 
 
 def make_train_step(model: ShiftInvModel, optimizer: torch.optim.Optimizer,
@@ -70,10 +89,115 @@ def make_eval_step(model: ShiftInvModel, loss_fn: Callable = loss_za):
     return step
 
 
-class Trainer:
-    """End-to-end orchestration (the reference train.py loop)."""
+@dataclasses.dataclass
+class _Slot:
+    """One batch shape's static input, its views, and its graph."""
+    batch: torch.Tensor
+    x_in: torch.Tensor
+    y_true: torch.Tensor
+    warm: bool = False
+    graph: Optional["torch.cuda.CUDAGraph"] = None
+    loss: Optional[torch.Tensor] = None
 
-    def __init__(self, cfg: C.Config, device, dataset: Optional[Dataset] = None):
+
+class TrainScan:
+    """T train steps a call over batches that stay on the device, their
+    losses gathered into a (T,) device tensor: the port of
+    make_train_scan (``run``: a (T, b, N, C) block of batches) and
+    make_train_scan_device (``run_indexed``: a device-resident training
+    set and a (T, b) block of minibatch indices).
+
+    Before each step one device-to-device copy fills a static batch
+    buffer.  On the card the step is one CUDA graph per batch shape,
+    replayed once a step (the Hopper form of lax.scan over the step, and
+    one graph for every chunk length).  The first step a graph serves
+    runs eagerly on a side stream: it creates Adam's state and the .grad
+    tensors, and it is a step of the sequence.  The capture follows at
+    the next step; it records and executes nothing, so every replay after
+    it is a step of the sequence and no extra optimizer step enters the
+    trajectory.  The kernel wrappers launch on the current stream, so the
+    capture records them; their Python launch counts move once, at
+    capture.  On the CPU the same step runs eagerly, T times a call."""
+
+    def __init__(self, model: ShiftInvModel, optimizer: torch.optim.Optimizer,
+                 loss_fn: Callable = loss_za):
+        self.optimizer = optimizer
+        self.step = make_train_step(model, optimizer, loss_fn)
+        self._slots: Dict[tuple, _Slot] = {}
+
+    def reset(self):
+        """Drop the graphs (after the optimizer's state tensors were
+        replaced, e.g. by a restore)."""
+        self._slots.clear()
+
+    def run(self, batches: torch.Tensor, num_inputs: int) -> torch.Tensor:
+        """batches (T, b, N, C) on the device -> losses (T,)."""
+        return self._run(batches.shape[0], lambda i, out: out.copy_(batches[i]),
+                         batches.shape[1:], num_inputs, batches.device)
+
+    def run_indexed(self, x_all: torch.Tensor, idxs: torch.Tensor,
+                    num_inputs: int) -> torch.Tensor:
+        """x_all (S, N, C) and idxs (T, b) int64 on the device -> losses
+        (T,); step t trains on x_all[idxs[t]]."""
+        return self._run(
+            idxs.shape[0],
+            lambda i, out: torch.index_select(x_all, 0, idxs[i], out=out),
+            (idxs.shape[1],) + tuple(x_all.shape[1:]), num_inputs, x_all.device)
+
+    def _run(self, t: int, fill, shape, num_inputs: int, device) -> torch.Tensor:
+        slot = self._slot(tuple(shape), num_inputs, device)
+        losses = torch.empty(t, dtype=torch.float32, device=device)
+        for i in range(t):
+            fill(i, slot.batch)
+            losses[i] = self._step(slot)
+        return losses
+
+    def _slot(self, shape: tuple, num_inputs: int, device) -> _Slot:
+        key = (shape, num_inputs, str(device))
+        slot = self._slots.get(key)
+        if slot is None:
+            batch = torch.empty(shape, dtype=torch.float32, device=device)
+            slot = _Slot(batch, *split_batch(batch, num_inputs))
+            self._slots[key] = slot
+        return slot
+
+    def _step(self, s: _Slot) -> torch.Tensor:
+        if s.batch.device.type != "cuda":
+            return self.step(s.x_in, s.y_true)
+        if s.graph is None:
+            if not s.warm:
+                s.warm = True
+                return self._side_stream_step(s)
+            self._capture(s)
+        s.graph.replay()
+        return s.loss
+
+    def _side_stream_step(self, s: _Slot) -> torch.Tensor:
+        dev = s.batch.device
+        main = torch.cuda.current_stream(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            loss = self.step(s.x_in, s.y_true)
+        main.wait_stream(side)
+        return loss
+
+    def _capture(self, s: _Slot):
+        # the graph's backward allocates the .grad tensors in its own pool
+        self.optimizer.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            s.loss = self.step(s.x_in, s.y_true)
+        s.graph = graph
+
+
+class Trainer:
+    """End-to-end orchestration (the reference train.py loop).  ``step`` is
+    the global step (the JAX TrainState.step): it counts every optimizer
+    step of this trainer's fit / fit_scan, and a restore sets it."""
+
+    def __init__(self, cfg: C.Config, device, dataset: Optional[Dataset] = None,
+                 saver=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.dataset = dataset if dataset is not None else make_dataset(cfg.data)
@@ -86,14 +210,48 @@ class Trainer:
         self.model = build_model(cfg.model, box=self.box, device=self.device)
         self.optimizer = make_optimizer(self.model, cfg.train.learn_rate)
         self.train_step = make_train_step(self.model, self.optimizer)
+        self.train_scan = TrainScan(self.model, self.optimizer)
         self.eval_step = make_eval_step(self.model)
+        self.saver = saver
+        self.step = 0
         self.num_inputs = self.dataset.num_input_channels
         self.metrics_log: list[dict] = []
         self.train_error_history: list[float] = []
         self._cov_confirmed = False
+        self._x_dev: Optional[torch.Tensor] = None
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
+
+    def _log(self, rec: dict):
+        self.metrics_log.append(rec)
+        if self.saver is not None:
+            self.saver.append_metrics(rec)
+
+    def _checkpoint(self):
+        if self.saver is not None:
+            self.saver.save_checkpoint(self, self.step)
+
+    def state_dict(self) -> dict:
+        """What a checkpoint holds: the model's and the optimizer's state
+        and the global step."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: dict):
+        """Restore state_dict() in place.  The optimizer keeps its own
+        ``capturable`` setting (a checkpoint may come from the other
+        device), and the captured graphs, which point at the replaced Adam
+        state, are dropped."""
+        opt = state["optimizer"]
+        opt = {**opt, "param_groups": [
+            {**saved, "capturable": group["capturable"]}
+            for saved, group in zip(opt["param_groups"],
+                                    self.optimizer.param_groups)]}
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(opt)
+        self.step = int(state["step"])
+        self.train_scan.reset()
 
     def check_graph_coverage(self, x_in: torch.Tensor) -> int:
         """Edges the lattice window would drop on this batch (0 == covered);
@@ -103,7 +261,7 @@ class Trainer:
             print(f"graph coverage violated: {v} rows have neighbors outside "
                   f"the lattice window (knn_window={self.cfg.model.knn_window})",
                   flush=True)
-            self.metrics_log.append({"graph_coverage_violations": int(v)})
+            self._log({"graph_coverage_violations": int(v)})
         return v
 
     def _refuse_uncovered(self, x_in: torch.Tensor):
@@ -116,7 +274,7 @@ class Trainer:
     def _log_effective_impl(self, verbose: bool):
         """Record the neighbor route the model's forward took."""
         rec = dict(self.model.impl_record)
-        self.metrics_log.append({"effective_neighbor_impl": rec})
+        self._log({"effective_neighbor_impl": rec})
         if verbose:
             print(f"effective neighbor route: {rec}", flush=True)
 
@@ -150,6 +308,7 @@ class Trainer:
             if it == 0:
                 self._refuse_uncovered(x_in)
             loss = self.train_step(x_in, y_true)
+            self.step += 1
             if it == 0:
                 self._log_effective_impl(verbose)
             if (it + 1) % tcfg.checkpoint_every == 0:
@@ -157,11 +316,78 @@ class Trainer:
                 rec = {"step": it + 1, "loss": last,
                        "elapsed_s": time.time() - t0}
                 self._monitor_coverage(x_in, rec)
-                self.metrics_log.append(rec)
+                self._log(rec)
                 self.train_error_history.append(last)
                 if verbose:
                     print(f"Checkpoint {it + 1:>5} : {last:.6f}")
+                # labelled with the global step: a restored run continues
+                # the numbering instead of overwriting
+                self._checkpoint()
         return float(loss) if loss is not None else float("nan")
+
+    def _device_data_enabled(self) -> bool:
+        """Whether fit_scan keeps X_train on the device: "on", or "auto"
+        while X_train fits NBODY_DEVICE_DATA_CAP_GB (default 6 GiB), as
+        in JAX (the port has no mesh, so no sharded exception)."""
+        mode = self.cfg.train.device_data
+        if mode == "off":
+            return False
+        if mode == "on":
+            return True
+        cap_gb = float(os.environ.get("NBODY_DEVICE_DATA_CAP_GB", "6"))
+        return self.dataset.X_train.nbytes <= cap_gb * 2 ** 30
+
+    def fit_scan(self, num_iters: Optional[int] = None,
+                 rng: Optional[np.random.Generator] = None,
+                 scan_chunk: int = 50, verbose: bool = True) -> float:
+        """Train in chunks of `scan_chunk` steps through ``train_scan``: the
+        same minibatch sequence as fit() from the same generator, and the
+        same losses; one host read of the losses, one record and one
+        checkpoint a chunk.  With device_data the training set is copied
+        to the device once and a chunk ships a (T, b) int64 index block,
+        else one (T, b, N, C) block of batches.  Returns the last loss."""
+        tcfg = self.cfg.train
+        num_iters = num_iters if num_iters is not None else tcfg.num_iters
+        rng = rng if rng is not None else self.dataset.minibatch_rng()
+        if scan_chunk < 1:
+            raise ValueError(f"scan_chunk must be positive, got {scan_chunk}")
+        use_dev = self._device_data_enabled()
+        if use_dev and self._x_dev is None:
+            self._x_dev = self._put(self.dataset.X_train)
+        self.model.train()
+        ni = self.num_inputs
+        last = float("nan")
+        t0 = time.time()
+        done = 0
+        while done < num_iters:
+            t = min(scan_chunk, num_iters - done)
+            idxs = np.stack([self.dataset.get_minibatch_indices(
+                rng, tcfg.batch_size) for _ in range(t)])
+            if use_dev:
+                idx_dev = self._put(idxs)
+                ends = [self._x_dev[idx_dev[j]][..., :ni] for j in (0, -1)]
+            else:
+                batches = self._put(self.dataset.X_train[idxs])
+                ends = [batches[j][..., :ni] for j in (0, -1)]
+            if done == 0:
+                self._refuse_uncovered(ends[0])
+            if use_dev:
+                losses = self.train_scan.run_indexed(self._x_dev, idx_dev, ni)
+            else:
+                losses = self.train_scan.run(batches, ni)
+            if done == 0:
+                self._log_effective_impl(verbose)
+            done += t
+            self.step += t
+            last = float(losses[-1])
+            rec = {"step": done, "loss": last, "elapsed_s": time.time() - t0}
+            self._monitor_coverage(ends[1], rec)
+            self._log(rec)
+            self.train_error_history.append(last)
+            if verbose:
+                print(f"Checkpoint {done:>5} : {last:.6f}")
+            self._checkpoint()
+        return last
 
     def evaluate(self, split: str = "test", verbose: bool = True):
         """Sequential eval sweep (reference train.py:140-174).  Returns

@@ -118,7 +118,8 @@ def test_constants_match_jax():
                  "PARAMS_SEED", "CHANNELS", "GRAPH_CHANNELS", "NUM_NEIGHBORS",
                  "BIAS_INIT", "BATCH_SIZE", "NUM_ITERS", "NUM_TEST_SAMPLES",
                  "LEARN_RATE", "NUM_VAL_SAMPLES", "REDSHIFTS",
-                 "MODEL_FAMILIES"):
+                 "MODEL_FAMILIES", "MODEL_NAME_ZA", "CUBE_NAME",
+                 "MODEL_TAGLIST"):
         assert getattr(C, name) == getattr(JC, name), name
 
 
@@ -145,7 +146,9 @@ def test_parser_reference_flags():
 @pytest.mark.parametrize("flags", [
     ["--impl", "banded"], ["--ensemble", "2"],
     ["--data_axis", "2"], ["--particle_axis", "2"], ["--streaming"],
-    ["--scan", "5"], ["--device_data", "on"], ["-r"], ["--trace", "t"],
+    # the run flags are ported; beside a refused flag they still raise
+    ["--scan", "5", "--ensemble", "2"], ["--device_data", "on", "--data_axis", "2"],
+    ["-r", "--streaming"], ["--trace", "t", "--particle_axis", "2"],
     ["--masked_core", "4", "4", "4"], ["--remat"],
     ["--model", "attn"], ["--model", "set"], ["--model", "shiftinv15"],
     ["--velocity", "--remat"], ["-k", "-1"]])
@@ -153,6 +156,28 @@ def test_unported_flags_raise(flags):
     args = C.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError):
         C.config_from_args(args)
+
+
+def test_run_flags_reach_train_config(monkeypatch):
+    """-n, -r, --scan and --device_data reach TrainConfig with the JAX
+    CLI's meaning; the defaults are the JAX TrainConfig's, and the
+    experiments directory follows the same variable."""
+    args = C.build_parser().parse_args(
+        ["-n", "foo", "-r", "--scan", "5", "--device_data", "on",
+         "--trace", "t"])
+    train = C.config_from_args(args).train
+    assert (train.name, train.restore, train.scan_chunk,
+            train.device_data) == ("foo", True, 5, "on")
+    assert args.trace == "t"
+    default = C.config_from_args(C.build_parser().parse_args([])).train
+    jdefault = JC.TrainConfig()
+    for field in ("name", "restore", "scan_chunk", "device_data",
+                  "experiments_dir", "checkpoint_every"):
+        assert getattr(default, field) == getattr(jdefault, field), field
+    monkeypatch.setenv("NBODY_EXPERIMENTS_DIR", "/some/where")
+    assert C.default_experiments_dir() == JC.default_experiments_dir() == "/some/where"
+    monkeypatch.delenv("NBODY_EXPERIMENTS_DIR")
+    assert C.default_experiments_dir() == JC.default_experiments_dir()
 
 
 def test_knn_select_values_accepted():

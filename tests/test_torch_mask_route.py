@@ -216,7 +216,8 @@ def test_masked_core_with_int8():
 
 
 @pytest.mark.parametrize("mask_dtype", ["int8", "int4"])
-def test_cli_int_masks_cpu(capsys, mask_dtype):
+def test_cli_int_masks_cpu(capsys, mask_dtype, tmp_path, monkeypatch):
+    monkeypatch.setenv("NBODY_EXPERIMENTS_DIR", str(tmp_path))
     rc = cli_train.main(["--platform", "cpu", "--mask_dtype", mask_dtype,
                          "--dtype", "bfloat16", "--cells", "8", "-k", "6",
                          "--knn_window", "2", "-c", "3", "8", "3", "-i", "2",

@@ -328,7 +328,8 @@ def test_config_velocity_and_route_flags():
         C.config_from_args(C.build_parser().parse_args(["--impl", "banded"]))
 
 
-def test_cli_velocity_index_cpu(capsys):
+def test_cli_velocity_index_cpu(capsys, tmp_path, monkeypatch):
+    monkeypatch.setenv("NBODY_EXPERIMENTS_DIR", str(tmp_path))
     rc = cli_train.main(["--platform", "cpu", "--velocity", "--mask_dtype",
                          "index", "--dtype", "bfloat16", "--cells", "8",
                          "-k", "6", "--knn_window", "2", "-c", "9", "8", "6",

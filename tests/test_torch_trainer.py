@@ -6,7 +6,9 @@ end on the CPU (the kernels' plain versions); the port imports without
 jax.
 """
 
+import json
 import os
+import re
 import subprocess
 import sys
 
@@ -50,7 +52,9 @@ SLICE_MODULES = [
     "nbody_tpu_torch.ops.banded", "nbody_tpu_torch.ops.graph_features",
     "nbody_tpu_torch.models.base", "nbody_tpu_torch.models.shiftinv",
     "nbody_tpu_torch.models.registry", "nbody_tpu_torch.train.trainer",
-    "nbody_tpu_torch.cli.train"]
+    "nbody_tpu_torch.cli.train", "nbody_tpu_torch.io_.saver",
+    "nbody_tpu_torch.io_.checkpoint", "nbody_tpu_torch.physics.baseline",
+    "nbody_tpu_torch.cli.eval"]
 
 
 def test_adam_steps_track_optax():
@@ -128,28 +132,63 @@ def test_trainer_refuses_uncovered_graph():
     assert trainer.metrics_log[0]["graph_coverage_violations"] > 0
 
 
-def test_cli_train_cpu(capsys):
-    rc = cli_train.main(["--platform", "cpu", "--cells", "8", "-i", "2",
-                         "-b", "2", "-t", "2", "--samples", "8", "-k", "6",
-                         "--knn_window", "2", "-c", "3", "8", "3",
-                         "--synthetic", "--dtype", "bfloat16"])
+CLI_BASE = ["--platform", "cpu", "--cells", "8", "-b", "2", "-t", "2",
+            "--samples", "8", "-k", "6", "--knn_window", "2", "-c", "3", "8",
+            "3", "--synthetic"]
+
+
+def test_cli_train_cpu(capsys, tmp_path, monkeypatch):
+    monkeypatch.setenv("NBODY_EXPERIMENTS_DIR", str(tmp_path))
+    rc = cli_train.main(CLI_BASE + ["-i", "2", "--dtype", "bfloat16", "-n", "a"])
     assert rc == 0
     out = capsys.readouterr().out
     assert "Training finished!" in out and "# Test Error" in out
-    with pytest.raises(NotImplementedError):
-        cli_train.main(["--platform", "cpu", "--scan", "10"])
+    # a short scan run: chunks of 2 over 3 steps, a checkpoint each
+    assert cli_train.main(CLI_BASE + ["-i", "3", "--scan", "2", "-n", "s"]) == 0
+    out = capsys.readouterr().out
+    assert "Checkpoint     2" in out and "Checkpoint     3" in out
+    session = tmp_path / "ZA-FPM_0_s" / "Session"
+    assert sorted(os.listdir(session)) == ["chkpt-2.pt", "chkpt-3.pt"]
 
 
-def test_cli_name_is_refused_until_artifacts_are_ported():
-    """-n names the JAX CLI's checkpoints and artifacts, which the port
-    does not save: a name raises the not-ported error instead of being
-    dropped; the default empty name runs."""
-    base = ["--platform", "cpu", "--cells", "8", "-i", "1", "-b", "2", "-t", "2",
-            "--samples", "8", "-k", "6", "--knn_window", "2", "-c", "3", "8", "3",
-            "--synthetic"]
-    with pytest.raises(NotImplementedError, match="--name='foo'"):
-        cli_train.main(base + ["-n", "foo"])
-    assert cli_train.main(base + ["-n", ""]) == 0
+def test_cli_name_is_refused_until_artifacts_are_ported(capsys, tmp_path,
+                                                        monkeypatch):
+    """The artifacts are ported, so a name is no longer refused: -n foo
+    writes the JAX CLI's files under ZA-FPM_0_foo, and the default empty
+    name picks a random tag, prints MODEL NAMED and writes under it (the
+    default run used to write nothing and say nothing)."""
+    monkeypatch.setenv("NBODY_EXPERIMENTS_DIR", str(tmp_path))
+    # --scan 2 records the training error (checkpoint_every is 250 steps)
+    assert cli_train.main(CLI_BASE + ["-i", "2", "--scan", "2", "-n", "foo"]) == 0
+    out = capsys.readouterr().out
+    assert "MODEL NAMED: ZA-FPM_0_foo" in out
+    assert cli_train.main(CLI_BASE + ["-i", "2", "--scan", "2"]) == 0
+    out = capsys.readouterr().out
+    names = [ln.split(": ", 1)[1] for ln in out.splitlines()
+             if ln.startswith("MODEL NAMED: ")]
+    assert len(names) == 1 and re.fullmatch(
+        r"ZA-FPM_0_(\w+)-(\w+)-(\w+)", names[0])
+    for name in ("ZA-FPM_0_foo", names[0]):
+        root = tmp_path / name
+        assert sorted(os.listdir(root / "Results")) == [
+            "X_0_prediction.npy", "error_test.npy", "error_training.npy"]
+        assert os.listdir(root / "Session") == ["chkpt-2.pt"]
+        cube = np.load(root / "Results" / "X_0_prediction.npy")
+        assert cube.shape == (2, 2, CELLS ** 3, 3) and cube.dtype == np.float32
+        recs = [json.loads(ln) for ln in open(root / "metrics.jsonl")]
+        assert [r["step"] for r in recs if "step" in r] == [2]
+
+
+def test_cli_restore_continues_the_step(capsys, tmp_path, monkeypatch):
+    """-r restores the latest checkpoint, and the global step continues."""
+    monkeypatch.setenv("NBODY_EXPERIMENTS_DIR", str(tmp_path))
+    assert cli_train.main(CLI_BASE + ["-i", "2", "-n", "r"]) == 0
+    assert cli_train.main(CLI_BASE + ["-i", "3", "--scan", "3", "-r",
+                                      "-n", "r"]) == 0
+    out = capsys.readouterr().out
+    assert "Restored checkpoint at step 2" in out
+    assert sorted(os.listdir(tmp_path / "ZA-FPM_0_r" / "Session")) == [
+        "chkpt-2.pt", "chkpt-5.pt"]
 
 
 def test_cuda_platform_needs_a_card():
