@@ -96,7 +96,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      train --scan 10 -i 20 with device data and -n, eval -n (restores step
      20, the same median line, the (2, 4, 32768, 3) cube, the baseline
      line), -r -i 10 (chkpt-30.pt), and --trace of a 3-step run (the
-     kernels' names in the chrome trace).
+     kernels' names in the chrome trace);
+ 15. the set and attn families (no kernel of the repo runs in them): the
+     same f32 params and batch on the card and on the CPU (set, CHANNELS,
+     16^3 b4; attn, ATTN_CHANNELS, 32^3 b10, train and eval mode): loss and
+     forward (relative L2) within rtol 1e-4, and the card's largest
+     deviation from the CPU's f64 forward within 1e-4 of the largest
+     output or twice the CPU f32 forward's own, whichever is larger; 200 bf16 fit steps of set at 16^3, lr
+     3e-3 (the verify recipe), the loss falling more than 2x; 3 steps of
+     fit_scan's graph against 3 eager steps for each family (loss rtol
+     1e-3, no wrapper launch); eager and graph ms a step, idle share and
+     peak memory of both; cli.experiment -i 20 --cells 16 --synthetic
+     in-process, its test median finite and its run written;
+ 16. the redshift-chain rollout at full width: cli.rollout in-process
+     (shiftinv GRAPH_CHANNELS, 32^3 synthetic chain, K 14, bf16, --steps
+     4, -i 20 a pair, -b 4, -t 8, window 3), its JSON line finite with
+     lin_chain[0] == lin_reset[0], then the same at window 2 where every
+     pair's exact guard lets it; one make_rollout call must launch
+     exactly lattice_knn 1, the gather 7 and the segment sum 6 times a
+     hop; the same stacked f32 params and x0 (32^3 b2) on the card and
+     on the CPU, per-hop MSE within rtol 1e-4 and equal per-hop coverage
+     counts; ms a hop by CUDA events, idle share under torch.profiler and
+     peak memory.
 The line before the last is {"kernels": [...]}, all eleven kernels with
 their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
 tensor cores); the last line is {"ok": true, "device": {...}}.
@@ -137,6 +158,14 @@ H100_BYTES_PER_S = 3.35e12
 H100_FP32_OPS = 67e12
 H100_BF16_TC_OPS = 989e12
 CELLS64 = 64
+# phase 15: set at BASELINE config 1 (16^3 b4), attn at the reference's b10
+SET_CELLS, SET_BATCH, ATTN_BATCH = 16, 4, 10
+# phase 16: the chain's hops, and every launch of one rollout hop on the
+# main path's model (models/shiftinv.py): the graph build, the features'
+# gather and one gather a layer (B), one scatter-mean a layer (C)
+CHAIN_STEPS = 4
+ROLLOUT_HOP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
+                        "neighbor_segment_sum": 6}
 # widths the block-selection kernels see on shiftinv_vel: counts, the
 # payload gather (disp + vel), and the channels 9-32-64-64-32-16-6
 SELECT_WIDTHS = (1, 6, 9, 16, 32, 64)
@@ -206,6 +235,23 @@ def device_ms(fn, iters=10):
     us = sum(e.self_device_time_total for e in prof.key_averages()
              if e.device_type == DeviceType.CUDA)
     return us / iters / 1e3
+
+
+def device_top(fn, iters, per, top=8):
+    """The `top` CUDA kernels of fn by self device time under
+    torch.profiler: [(name, ms, launches), ...] per 1/`per` of a call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = sorted(((e.key[:60], e.self_device_time_total / iters / per / 1e3,
+                    e.count / iters / per) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    return [(n, round(ms, 4), c) for n, ms, c in rows[:top]]
 
 
 def bf16_ulp(x):
@@ -1068,6 +1114,69 @@ def idle_host_ms(fn, reps=5):
     return float(np.median(host))
 
 
+@contextlib.contextmanager
+def experiments_dir():
+    """A temporary NBODY_EXPERIMENTS_DIR under build/ for in-process CLI
+    runs; yields its path and restores the variable."""
+    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build_dir, exist_ok=True)
+    old_env = os.environ.get("NBODY_EXPERIMENTS_DIR")
+    with tempfile.TemporaryDirectory(dir=build_dir) as exp:
+        os.environ["NBODY_EXPERIMENTS_DIR"] = exp
+        try:
+            yield exp
+        finally:
+            if old_env is None:
+                os.environ.pop("NBODY_EXPERIMENTS_DIR", None)
+            else:
+                os.environ["NBODY_EXPERIMENTS_DIR"] = old_env
+
+
+def step_forms(dev, make_trainer, batches, ni, label):
+    """fit_scan's graph and the eager step, each on a fresh trainer: ms a
+    step by CUDA events and host ms a step over a chunk of len(batches)
+    steps after a warm-up chunk, device busy a step (kernel self time
+    under torch.profiler over 5 steps) and idle share, host ms of one step
+    on an idle card, peak allocated and reserved memory."""
+    from nbody_tpu_torch.data.dataset import split_batch
+    steps = batches.shape[0]
+    out = {}
+    for form in ("graph", "eager"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        trainer = make_trainer()
+        if form == "graph":
+            def chunk():
+                trainer.train_scan.run(batches, ni)
+
+            def one():
+                trainer.train_scan.run(batches[:1], ni)
+        else:
+            xy = [split_batch(batches[i], ni) for i in range(steps)]
+
+            def chunk():
+                for x, y in xy:
+                    trainer.train_step(x, y)
+
+            def one():
+                trainer.train_step(*xy[0])
+        ms, host = chunk_times(chunk, steps)
+        pk, rs = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        busy, host1 = device_ms(one, 5), idle_host_ms(one)
+        print(f"train step ({form}, {label}, {steps} steps after warm-up): "
+              f"{ms:.3f} ms a step (CUDA events), host {host:.3f} ms a step; "
+              f"device busy {busy:.3f} ms a step (idle share "
+              f"{1 - busy / ms:.3f}); one step on an idle card: host "
+              f"{host1:.3f} ms; peak allocated {pk / 2**20:.1f} MiB, reserved "
+              f"{rs / 2**20:.1f} MiB")
+        out[form] = {"ms": ms, "host_ms": host, "busy_ms": busy,
+                     "idle_share": 1 - busy / ms, "idle_card_host_ms": host1,
+                     "peak_mib": pk / 2**20, "reserved_mib": rs / 2**20}
+        del trainer, chunk, one
+    return out
+
+
 def run_scan(dev, C, dataset, ds64, counted):
     """Phase 14: the run around the step -- Trainer.fit_scan, one CUDA
     graph of the train step replayed once a step, against eager fit; its
@@ -1165,40 +1274,11 @@ def run_scan(dev, C, dataset, ds64, counted):
           "the replayed graph did not run kernels A, B and C once a step")
 
     # (c) step times over 20 steps after warm-up, host time, peak memory;
-    # device busy a step (kernel time under torch.profiler) and the host
+    # device busy a step (kernel self time under torch.profiler) and the host
     # time of one step launched on an idle card
-    step_ms, host_ms = chunk_times(lambda: graph.train_scan.run(batches, 6), 20)
-    peak, reserved = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_reserved(dev)
-    one = lambda: graph.train_scan.run(batches[:1], 6)  # noqa: E731
-    times = {"graph": (step_ms, host_ms, peak, reserved, device_ms(one, 5),
-                       idle_host_ms(one))}
-    del graph, one
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats(dev)
-    eager = Trainer(cfg, dev, dataset=dataset)
-    xy = [split_batch(batches[i]) for i in range(20)]
-
-    def eager_chunk():
-        for x, y in xy:
-            eager.train_step(x, y)
-
-    step_ms, host_ms = chunk_times(eager_chunk, 20)
-    peak, reserved = torch.cuda.max_memory_allocated(dev), torch.cuda.memory_reserved(dev)
-    one = lambda: eager.train_step(*xy[0])  # noqa: E731
-    times["eager"] = (step_ms, host_ms, peak, reserved, device_ms(one, 5),
-                      idle_host_ms(one))
-    del eager, xy, one
-    for k, (ms, host, pk, rs, busy, host1) in times.items():
-        print(f"train step ({k}, 32^3 b4 K14 w2 bf16, 20 steps after warm-up): "
-              f"{ms:.3f} ms a step (CUDA events), host {host:.3f} ms a step; "
-              f"device busy {busy:.3f} ms a step (idle share "
-              f"{1 - busy / ms:.3f}); one step on an idle card: host "
-              f"{host1:.3f} ms; peak allocated {pk / 2**20:.1f} MiB, reserved "
-              f"{rs / 2**20:.1f} MiB")
-        summary[k] = {"ms": ms, "host_ms": host, "busy_ms": busy,
-                      "idle_share": 1 - busy / ms, "idle_card_host_ms": host1,
-                      "peak_mib": pk / 2**20, "reserved_mib": rs / 2**20}
+    del graph
+    summary.update(step_forms(dev, lambda: Trainer(cfg, dev, dataset=dataset),
+                              batches, 6, "32^3 b4 K14 w2 bf16"))
 
     # (d) every other route: 3 steps of one chunk (the eager first step,
     # then 2 graph steps) against 3 eager steps on the same batches
@@ -1236,53 +1316,270 @@ def run_scan(dev, C, dataset, ds64, counted):
     flags = ["--model", "shiftinv", "-k", str(K), "--cells", str(CELLS),
              "--knn_window", str(WINDOW), "--dtype", "bfloat16", "--synthetic",
              "--samples", "16", "-t", "4", "-b", str(BATCH)]
-    build_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
-    os.makedirs(build_dir, exist_ok=True)
-    old_env = os.environ.get("NBODY_EXPERIMENTS_DIR")
-    with tempfile.TemporaryDirectory(dir=build_dir) as exp:
-        os.environ["NBODY_EXPERIMENTS_DIR"] = exp
-        try:
-            out = run_cli(cli_train.main, flags + [
-                "--scan", "10", "-i", "20", "--device_data", "on", "-n", "smoke"])
-            root = os.path.join(exp, "ZA-FPM_0_smoke")
-            med = [ln for ln in out.splitlines() if "median :" in ln][-1]
-            check("MODEL NAMED: ZA-FPM_0_smoke" in out
-                  and sorted(os.listdir(os.path.join(root, "Session")))
-                  == ["chkpt-10.pt", "chkpt-20.pt"], "cli.train -n smoke artifacts")
-            out = run_cli(cli_eval.main, flags + ["-n", "smoke"])
-            cube = np.load(os.path.join(root, "Results", "X_0_prediction.npy"))
-            check("Restored checkpoint at step 20" in out, "eval did not restore step 20")
-            check([ln for ln in out.splitlines() if "median :" in ln][-1] == med,
-                  "eval does not reproduce the train run's median")
-            check(cube.shape == (2, 4, CELLS ** 3, 3) and np.isfinite(cube).all(),
-                  f"eval cube {cube.shape}")
-            check(any(ln.startswith("L2 median: model ") for ln in out.splitlines()),
-                  "eval printed no linear-velocity baseline line")
-            out = run_cli(cli_train.main, flags + [
-                "--scan", "10", "-i", "10", "-r", "-n", "smoke"])
-            check("Restored checkpoint at step 20" in out and os.path.exists(
-                os.path.join(root, "Session", "chkpt-30.pt")), "-r did not resume")
-            trace = os.path.join(exp, "trace")
-            run_cli(cli_train.main, flags + [
-                "--scan", "3", "-i", "3", "-n", "smoke_trace", "--trace", trace])
-            with open(os.path.join(trace, "trace.json")) as f:
-                names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
-            found = {n: sum(n in e for e in names) for n in (
-                "lattice_knn_kernel", "gather_rows_kernel", "segment_sum_kernel")}
-            print(f"--trace of a 3-step scan run, kernel events: {found}")
-            # 3 steps (the eager first and 2 replays), and the coverage
-            # guard's lattice search
-            check(found == {"lattice_knn_kernel": 4, "gather_rows_kernel": 36,
-                            "segment_sum_kernel": 33},
-                  "the --trace trace does not hold kernels A, B and C of "
-                  "every step")
-        finally:
-            if old_env is None:
-                os.environ.pop("NBODY_EXPERIMENTS_DIR", None)
-            else:
-                os.environ["NBODY_EXPERIMENTS_DIR"] = old_env
+    with experiments_dir() as exp:
+        out = run_cli(cli_train.main, flags + [
+            "--scan", "10", "-i", "20", "--device_data", "on", "-n", "smoke"])
+        root = os.path.join(exp, "ZA-FPM_0_smoke")
+        med = [ln for ln in out.splitlines() if "median :" in ln][-1]
+        check("MODEL NAMED: ZA-FPM_0_smoke" in out
+              and sorted(os.listdir(os.path.join(root, "Session")))
+              == ["chkpt-10.pt", "chkpt-20.pt"], "cli.train -n smoke artifacts")
+        out = run_cli(cli_eval.main, flags + ["-n", "smoke"])
+        cube = np.load(os.path.join(root, "Results", "X_0_prediction.npy"))
+        check("Restored checkpoint at step 20" in out, "eval did not restore step 20")
+        check([ln for ln in out.splitlines() if "median :" in ln][-1] == med,
+              "eval does not reproduce the train run's median")
+        check(cube.shape == (2, 4, CELLS ** 3, 3) and np.isfinite(cube).all(),
+              f"eval cube {cube.shape}")
+        check(any(ln.startswith("L2 median: model ") for ln in out.splitlines()),
+              "eval printed no linear-velocity baseline line")
+        out = run_cli(cli_train.main, flags + [
+            "--scan", "10", "-i", "10", "-r", "-n", "smoke"])
+        check("Restored checkpoint at step 20" in out and os.path.exists(
+            os.path.join(root, "Session", "chkpt-30.pt")), "-r did not resume")
+        trace = os.path.join(exp, "trace")
+        run_cli(cli_train.main, flags + [
+            "--scan", "3", "-i", "3", "-n", "smoke_trace", "--trace", trace])
+        with open(os.path.join(trace, "trace.json")) as f:
+            names = [e.get("name", "") for e in json.load(f)["traceEvents"]]
+        found = {n: sum(n in e for e in names) for n in (
+            "lattice_knn_kernel", "gather_rows_kernel", "segment_sum_kernel")}
+        print(f"--trace of a 3-step scan run, kernel events: {found}")
+        # 3 steps (the eager first and 2 replays), and the coverage
+        # guard's lattice search
+        check(found == {"lattice_knn_kernel": 4, "gather_rows_kernel": 36,
+                        "segment_sum_kernel": 33},
+              "the --trace trace does not hold kernels A, B and C of "
+              "every step")
     summary["seconds"] = time.perf_counter() - t_phase
     print(f"run around the step (phase 14): {json.dumps(summary)}")
+
+
+def run_set_attn(dev, C, dataset, counted):
+    """Phase 15: the set and attn families -- card against CPU in f32,
+    200 bf16 fit steps of set, fit_scan's graph against the eager step,
+    cli.experiment, and the step times of both families."""
+    from nbody_tpu_torch.cli import experiment as cli_experiment
+    from nbody_tpu_torch.data.dataset import Dataset, split_batch
+    from nbody_tpu_torch.models.registry import build_model
+    from nbody_tpu_torch.physics.losses import loss_za
+    from nbody_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    summary = {}
+    ds16 = Dataset(C.DataConfig(
+        data_dir=os.path.join(os.path.sep, "nonexistent-force-synthetic"),
+        num_test=4, num_val=3, cells_per_side=SET_CELLS,
+        synthetic_num_samples=32))
+    # BASELINE config 1 (set, CHANNELS, 16^3 b4) and the reference's attn
+    # run (ATTN_CHANNELS, 22 x 16, b10) on the main path's 32^3 cubes
+    cases = {"set": (ds16, C.CHANNELS, SET_BATCH),
+             "attn": (dataset, C.ATTN_CHANNELS, ATTN_BATCH)}
+
+    def mcfg(family, dtype):
+        return C.ModelConfig(family=family, channels=tuple(cases[family][1]),
+                             dtype=dtype)
+
+    # (a) the same params and batch, f32, on the card and on the CPU, and
+    # the CPU in f64 as the reference both f32 forwards are held to
+    for family, mode in (("set", "train"), ("attn", "train"), ("attn", "eval")):
+        ds, _, batch = cases[family]
+        x, y = split_batch(torch.as_tensor(ds.X_train[:batch]))
+        res = {}
+        state = None
+        for key, d, dt in (("card", dev, None), ("cpu", torch.device("cpu"), None),
+                           ("f64", torch.device("cpu"), torch.float64)):
+            model = build_model(mcfg(family, "float32"), box=ds.box, device=d)
+            if state is None:
+                state = model.state_dict()
+            else:
+                model.load_state_dict(state)
+            if dt is not None:
+                model.dtype = dt        # the same forward computed in f64
+            fwd = model if mode == "train" else model.eval_fn
+            with torch.no_grad():
+                pred = fwd(x.to(d))
+                res[key] = (pred.cpu().double(), float(loss_za(pred, y.to(d))))
+        (pd, ld), (pc, lc), (p64, _) = res["card"], res["cpu"], res["f64"]
+        rel = abs(ld - lc) / abs(lc)
+        norm = float((pd - pc).norm() / pc.norm())
+        scale = float(p64.abs().max())
+        err_card = float((pd - p64).abs().max()) / scale
+        err_cpu = float((pc - p64).abs().max()) / scale
+        print(f"card vs CPU f32, {family} {mode} mode ({ds.cells}^3 b{batch}): "
+              f"loss {ld!r} vs {lc!r} (rel {rel:.2e}); forward rel L2 "
+              f"{norm:.2e}; max abs diff / max |out| against the f64 "
+              f"forward: card {err_card:.2e}, CPU f32 {err_cpu:.2e}")
+        # attn's batch-coupled gram reaches ~1e8, so its softmax is a hard
+        # argmax whose near-ties an f32 rounding flips: in train mode the
+        # CPU's own f32 forward is ~5e-4 off the f64 one elementwise
+        check(rel <= 1e-4 and norm <= 1e-4
+              and err_card <= max(1e-4, 2.0 * err_cpu),
+              f"{family} {mode}: card and CPU f32 forwards disagree")
+
+    # (b) 200 bf16 fit steps of set at 16^3, lr 3e-3: the verify skill's
+    # recipe (channels 6-64-32-3, seed 1, b4); the loss must fall > 2x
+    cfg = C.Config(ds16.cfg, C.ModelConfig(
+        family="set", channels=(6, 64, 32, 3), seed=1, dtype="bfloat16"),
+        C.TrainConfig(num_iters=200, batch_size=SET_BATCH, learn_rate=3e-3,
+                      checkpoint_every=1))
+    trainer = Trainer(cfg, dev, dataset=ds16)
+    reset_counts(*counted)
+    trainer.fit(verbose=False)
+    losses = trainer.train_error_history
+    fall = losses[0] / float(np.mean(losses[-10:]))
+    print(f"set 16^3 b4 bf16, 200 fit steps at lr 3e-3: loss {losses[0]:.5f} "
+          f"-> {float(np.mean(losses[-10:])):.5f} (mean of the last 10), "
+          f"fell {fall:.2f}x; launches through the wrappers "
+          f"{ {k: v for m in counted for k, v in m.LAUNCHES.items() if v} }")
+    check(len(losses) == 200 and np.isfinite(losses).all() and fall > 2.0,
+          "set did not train: the loss fell by 2x or less")
+    summary["set_fit_fall"] = fall
+    del trainer
+
+    # (c) fit_scan's graph against the eager step, 3 steps each, bf16;
+    # (d) the step times of both forms
+    for family, label in (("set", "16^3 b4 CHANNELS"),
+                          ("attn", "32^3 b10 ATTN_CHANNELS 22 x 16")):
+        ds, _, batch = cases[family]
+        cfg = C.Config(ds.cfg, mcfg(family, "bfloat16"),
+                       C.TrainConfig(num_iters=3, batch_size=batch,
+                                     learn_rate=1e-3))
+        rng = ds.minibatch_rng()
+        b = torch.as_tensor(ds.X_train[np.stack([
+            ds.get_minibatch_indices(rng, batch) for _ in range(20)])], device=dev)
+        eager = Trainer(cfg, dev, dataset=ds)
+        le = [float(eager.train_step(*split_batch(b[i]))) for i in range(3)]
+        del eager
+        graph = Trainer(cfg, dev, dataset=ds)
+        reset_counts(*counted)
+        lg = graph.train_scan.run(b[:3], 6).tolist()
+        torch.cuda.synchronize()
+        counts = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+        rel = max(abs(a - c) / abs(a) for a, c in zip(le, lg))
+        print(f"{family} bf16 ({label}): eager {le} vs graph {lg} (steps 2-3 "
+              f"replayed), max rel {rel:.2e}, bit-equal {le == lg}; wrapper "
+              f"launches {counts}")
+        check(rel <= 1e-3, f"{family}: graph losses off eager's")
+        check(not counts, f"{family} launched kernels of the graph routes")
+        del graph
+        summary[family] = step_forms(
+            dev, lambda: Trainer(cfg, dev, dataset=ds), b, 6,
+            f"{family} {label} bf16")
+
+    # (e) cli.experiment with the reference's defaults, 20 iterations
+    with experiments_dir() as exp:
+        out = run_cli(cli_experiment.main, ["-i", "20", "--cells", str(SET_CELLS),
+                                            "--synthetic"])
+        med = float([ln for ln in out.splitlines() if "median :" in ln][-1]
+                    .split(":")[1])
+        root = os.path.join(exp, "ZA-FPM_0_TEST")
+        cube = np.load(os.path.join(root, "Results", "X_0_prediction.npy"))
+        print(f"cli.experiment -i 20 --cells {SET_CELLS}: test median {med}, "
+              f"cube {cube.shape}, session {sorted(os.listdir(os.path.join(root, 'Session')))}")
+        check(np.isfinite(med) and np.isfinite(cube).all()
+              and os.path.exists(os.path.join(root, "Session", "chkpt-20.pt")),
+              "cli.experiment did not finish its run")
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"set and attn (phase 15): {json.dumps(summary)}")
+
+
+def run_rollout(dev, C, counted):
+    """Phase 16: the redshift-chain rollout at full width -- cli.rollout
+    end to end (window 3, and window 2 where every pair's guard passes),
+    the launches of one make_rollout call, card against CPU in f32, and ms
+    a hop, idle share and peak memory."""
+    from nbody_tpu_torch.cli import rollout as cli_rollout
+    from nbody_tpu_torch.data.dataset import Dataset
+    from nbody_tpu_torch.models.registry import build_model
+    from nbody_tpu_torch.physics.losses import loss_za
+    from nbody_tpu_torch.train.rollout import make_rollout, stack_params
+    from nbody_tpu_torch.train.trainer import CoverageError
+
+    t_phase = time.perf_counter()
+    summary = {}
+    flags = ["--model", "shiftinv", "-k", str(K), "--cells", str(CELLS),
+             "-c", *map(str, C.GRAPH_CHANNELS), "--dtype", "bfloat16",
+             "--synthetic", "--samples", "16", "--steps", str(CHAIN_STEPS),
+             "-i", "20", "-b", str(BATCH), "-t", "8"]
+    with experiments_dir():
+        out = run_cli(cli_rollout.main, flags + ["-n", "chain"])
+        rec = json.loads(out.strip().splitlines()[-1])
+        lin, chain = (rec["rollout_linear_median_l2"],
+                      rec["rollout_linear_chain_median_l2"])
+        check(all(np.isfinite(v).all() for v in map(np.asarray, rec.values()))
+              and len(rec["rollout_model_median_l2"]) == CHAIN_STEPS,
+              "the chain's JSON line is not finite")
+        check(lin[0] == chain[0], "lin_chain[0] != lin_reset[0]")
+        try:
+            run_cli(cli_rollout.main, flags + ["--knn_window", "2", "-n", "w2"])
+            summary["window_2"] = "every pair's guard passed"
+        except CoverageError as e:
+            summary["window_2"] = f"refused: {e}"
+        print(f"chain at knn_window 2: {summary['window_2']}")
+
+    # the CLI's data, truth chain and monitor, and stacked params of
+    # CHAIN_STEPS models (seeds s, s+1, ...)
+    cfg = C.config_from_args(cli_rollout.build_chain_parser().parse_args(flags))
+    datasets = [Dataset(cfg.data, raw=raw) for raw in cli_rollout.synthetic_chain_raw(
+        cfg.data.synthetic_num_samples, CELLS, CHAIN_STEPS, cfg.data.seed)]
+    x0, truth, _ = cli_rollout.truth_chain(datasets)
+    monitor = cli_rollout.margin_monitor(cfg.model, datasets[0])
+    stacked = stack_params([dict(build_model(dataclasses.replace(
+        cfg.model, seed=cfg.model.seed + t), box=datasets[0].box,
+        device=dev).named_parameters()) for t in range(CHAIN_STEPS)])
+
+    # launches of one rollout call, and its times (bf16, the CLI's b8)
+    model = build_model(cfg.model, box=datasets[0].box, device=dev)
+    rollout = make_rollout(model, coverage_fn=monitor)
+    x_dev = torch.as_tensor(x0, device=dev)
+
+    def call():
+        return rollout(stacked, x_dev)
+
+    call()
+    reset_counts(*counted)
+    call()
+    torch.cuda.synchronize()
+    counts = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    want = {n: v * CHAIN_STEPS for n, v in ROLLOUT_HOP_LAUNCHES.items()}
+    print(f"launches of one {CHAIN_STEPS}-hop rollout call: {counts}")
+    check(counts == want, f"the rollout launched {counts}, expected {want}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(call, iters=5, warmup=1) / CHAIN_STEPS
+    peak = torch.cuda.max_memory_allocated(dev)
+    busy = device_ms(call, 3) / CHAIN_STEPS
+    host1 = idle_host_ms(call) / CHAIN_STEPS
+    print(f"rollout, where a hop's device time goes: {device_top(call, 3, CHAIN_STEPS)}")
+    print(f"rollout (shiftinv {CELLS}^3 b{x0.shape[0]} K{K} w{cfg.model.knn_window} "
+          f"bf16, {CHAIN_STEPS} hops, monitor on): {ms:.3f} ms a hop (CUDA "
+          f"events, mean of 5 calls); device busy {busy:.3f} ms a hop (idle "
+          f"share {1 - busy / ms:.3f}); host of one call on an idle card "
+          f"{host1:.3f} ms a hop; peak allocated {peak / 2**20:.1f} MiB")
+    summary.update(ms_a_hop=ms, busy_ms_a_hop=busy, idle_share=1 - busy / ms,
+                   idle_card_host_ms_a_hop=host1, peak_mib=peak / 2**20)
+    del model, rollout, x_dev
+
+    # the same stacked params and x0 (b2), f32, on the card and on the CPU
+    f32 = dataclasses.replace(cfg.model, dtype="float32")
+    res = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(f32, box=datasets[0].box, device=d)
+        st = {k: v.to(d) for k, v in stacked.items()}
+        _, (traj, cov) = make_rollout(model, coverage_fn=monitor)(
+            st, torch.as_tensor(x0[:2], device=d))
+        res[key] = ([float(loss_za(traj[t], torch.as_tensor(truth[t, :2], device=d)))
+                     for t in range(CHAIN_STEPS)], cov.cpu().tolist())
+    (mse_d, cov_d), (mse_c, cov_c) = res["card"], res["cpu"]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(mse_d, mse_c))
+    print(f"rollout card vs CPU f32 ({CELLS}^3 b2, {CHAIN_STEPS} hops): per-hop MSE "
+          f"{mse_d} vs {mse_c} (max rel {rel:.2e}); coverage counts {cov_d} vs "
+          f"{cov_c}")
+    check(rel <= 1e-4 and cov_d == cov_c, "the rollout on the card and on the "
+                                          "CPU disagree")
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"rollout (phase 16): {json.dumps(summary)}")
 
 
 def check_fused(dev, idx):
@@ -1619,6 +1916,10 @@ def main() -> int:
     rec["fused_boundary_dot"], counters["fused_boundary_dot"] = check_fused(dev, idx0)
     # 14. the run around the step: fit_scan's CUDA graph, the CLI
     run_scan(dev, C, dataset, ds64, counted)
+    # 15. the set and attn families, cli.experiment
+    run_set_attn(dev, C, dataset, counted)
+    # 16. the redshift-chain rollout at full width, cli.rollout
+    run_rollout(dev, C, counted)
 
     kernels = [{"name": n, "route": "cuda", "source": REPO_KERNELS[n][0],
                 "replaces": REPO_KERNELS[n][1], "launches": counters[n],

@@ -4,7 +4,7 @@ nbody_tpu/config.py).
 The constants and flag names are the JAX package's.  The dataclasses hold
 only what the port runs; every flag of a path the port does not run yet
 (sharding, ensembles, streaming, rematerialization, the TPU mask
-encodings, other model families) raises NotImplementedError when set to
+encodings, the shiftinv15 family) raises NotImplementedError when set to
 a non-default value instead of being ignored.  ROADMAP.md lists what
 waits.
 
@@ -73,7 +73,9 @@ MODEL_TAGLIST = ["arae", "boot", "cari", "drac", "erid", "forn", "gemi",
 
 MODEL_FAMILIES = ("set", "shiftinv", "shiftinv15", "attn", "shiftinv_vel")
 # families the port runs; the others raise NotImplementedError
-PORTED_FAMILIES = ("shiftinv", "shiftinv_vel")
+PORTED_FAMILIES = ("set", "shiftinv", "attn", "shiftinv_vel")
+# families without a kNN graph: no neighbor op, no coverage guard
+GRAPHLESS_FAMILIES = ("set", "attn")
 DTYPES = ("float32", "bfloat16")
 NEIGHBOR_IMPLS = ("masked", "block")          # "banded" is not ported
 MASK_DTYPES = ("auto", "index", "int8", "int4")
@@ -113,6 +115,9 @@ class ModelConfig:
     channels: Tuple[int, ...] = tuple(GRAPH_CHANNELS)
     k_neighbors: int = NUM_NEIGHBORS
     seed: int = PARAMS_SEED
+    # attn: the channel gate's gram over all b*N rows (reference
+    # experiment.py:122-128), or per sample when False
+    batch_coupled_gate: bool = True
     dtype: str = "float32"                    # compute dtype for activations
     # lattice kNN search window in grid cells (ops/knn.py)
     knn_window: int = 3
@@ -184,8 +189,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="Number of samples in test set")
     adg("--model", type=str, default=None, choices=list(MODEL_FAMILIES),
         help="Model family; default: 'shiftinv_vel' with --velocity, else "
-             "'set' if -k == -1 else 'shiftinv' (the port runs shiftinv "
-             "and shiftinv_vel)")
+             "'set' if -k == -1 else 'shiftinv' (shiftinv15 is not ported)")
     adg("--data_dir", type=str, default=None, help="Directory with ZA_*.npy cubes")
     adg("--synthetic", action="store_true",
         help="Force synthetic data even if real cubes exist")

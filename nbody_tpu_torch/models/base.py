@@ -7,7 +7,9 @@ matches the reference's distributions (glorot-normal weights, biases
 1e-8) drawn from a ``torch.Generator``; the draws differ from the JAX
 package's threefry streams, so parity tests load the JAX parameters with
 ``params_from_jax`` instead of matching seeds.  The shiftinv_vel family
-adds two output scalars (``ShiftInvVelParams``).
+adds two output scalars (``ShiftInvVelParams``); the set family uses
+``LayerParams`` with one W and one B a layer, and the attn family holds
+its gate, residual and batch-norm parameters in ``AttnParams``.
 """
 
 from __future__ import annotations
@@ -71,14 +73,42 @@ class ShiftInvVelParams(LayerParams):
         self.T = nn.Parameter(t)
 
 
-def params_from_jax(tree) -> LayerParams:
+ATTN_KEYS = ("Wf", "Wg", "Wh", "R", "B", "gamma", "beta")
+
+
+class AttnParams(nn.Module):
+    """The attn family's per-layer parameters (models/attn.py:37-57):
+    Wf, Wg, Wh (k_in, k_out), R (6, k_out), B, gamma and beta (k_out),
+    each a ParameterList over the layers (f32)."""
+
+    def __init__(self, layers: Sequence[Dict[str, torch.Tensor]]):
+        super().__init__()
+        for key in ATTN_KEYS:
+            setattr(self, key, nn.ParameterList(
+                [nn.Parameter(p[key]) for p in layers]))
+
+    def __len__(self) -> int:
+        return len(self.Wf)
+
+    def layers(self, dtype=None) -> List[Dict[str, torch.Tensor]]:
+        """[{"Wf", ..., "beta"}, ...], cast to `dtype` if given."""
+        return [{key: (t if dtype is None else t.to(dtype))
+                 for key, t in zip(ATTN_KEYS, ts)}
+                for ts in zip(*(getattr(self, key) for key in ATTN_KEYS))]
+
+
+def params_from_jax(tree) -> nn.Module:
     """Load the JAX package's parameter pytree, converted to numpy, as the
-    port's f32 parameters: a list of {"W", "B"} (shiftinv), or the
-    shiftinv_vel dict {"layers": [...], "T": (2,)}."""
+    port's f32 parameters: a list of {"W", "B"} (set, shiftinv), the
+    shiftinv_vel dict {"layers": [...], "T": (2,)}, or a list of attn
+    layers {"Wf", ..., "beta"}."""
     def f32(a):
         return torch.tensor(np.asarray(a), dtype=torch.float32)
 
     layers = tree["layers"] if isinstance(tree, dict) else tree
+    if "Wf" in layers[0]:
+        return AttnParams([{key: f32(p[key]) for key in ATTN_KEYS}
+                           for p in layers])
     layers = [{"W": f32(p["W"]), "B": f32(p["B"])} for p in layers]
     if isinstance(tree, dict):
         return ShiftInvVelParams(layers, f32(tree["T"]))

@@ -1,21 +1,26 @@
-"""Model registry (port of nbody_tpu/models/registry.py for the shiftinv
-and shiftinv_vel families).
+"""Model registry (port of nbody_tpu/models/registry.py for the set,
+shiftinv, attn and shiftinv_vel families).
 
 A model takes the standard input batch x_in (b, N, 6) [grid - box/2,
 za_disp] -- (b, N, 9) with the velocities for shiftinv_vel -- and returns
-the predicted ZA->FastPM residual (b, N, 3), or (b, N, 6), in f32.  The
-periodic lattice kNN graph is rebuilt inside every forward, from f32
-positions, before anything is cast to the compute dtype.  Mixed precision
-is the JAX package's (registry.py:304-322): parameters, and so the Adam
-state, stay f32; the forward casts them to the compute dtype and returns
-f32 predictions.
+the predicted ZA->FastPM residual (b, N, 3), or (b, N, 6), in f32.
+``forward`` is the JAX Model.apply (nn.Module.apply has another meaning)
+and ``eval_fn`` its eval-mode forward: attn's ``apply_eval`` (frozen
+batch-norm statistics), the same forward for the others; neither follows
+the module's train() / eval() flag.  The graph families rebuild the
+periodic lattice kNN graph inside every forward, from f32 positions,
+before anything is cast to the compute dtype.  Mixed precision is the
+JAX package's (registry.py:304-322): parameters, and so the Adam state,
+stay f32; the forward casts them and the input to the compute dtype and
+returns f32 predictions.
 
 Each forward also picks its neighbor route (``_make_masks``) and records
 it in ``impl_record``: the masked index route (kernels D/E) for
 ``mask_dtype="index"`` and the integer-mask route (kernels H/I) for
 ``mask_dtype="int8"|"int4"``, both in bf16; the block route (kernels F/G)
-for ``neighbor_impl="block"``; else the direct kernels B/C.  Other
-families raise NotImplementedError (ROADMAP.md).
+for ``neighbor_impl="block"``; else the direct kernels B/C.  The set
+and attn families use no neighbor op.  shiftinv15 raises
+NotImplementedError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from torch import nn
 
 from nbody_tpu_torch import config as C
-from nbody_tpu_torch.models import shiftinv
+from nbody_tpu_torch.models import attn, set_net, shiftinv
 from nbody_tpu_torch.ops import blocked
 from nbody_tpu_torch.ops.knn import knn_periodic_batch, knn_periodic_lattice_batch
 
@@ -125,32 +130,97 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-class ShiftInvModel(nn.Module):
+class _Model(nn.Module):
+    """What every family shares: its config, box, compute dtype and
+    ``impl_record`` (the neighbor route a forward took; empty for the
+    families without neighbor ops), and ``eval_fn``."""
+
+    def __init__(self, cfg: C.ModelConfig, box: float):
+        super().__init__()
+        self.cfg = cfg
+        self.box = box
+        self.dtype = getattr(torch, cfg.dtype)
+        self.impl_record: dict = {}
+
+    @property
+    def eval_fn(self):
+        """The eval-mode forward (JAX Model.eval_fn)."""
+        return self.forward
+
+
+def _channels(cfg: C.ModelConfig, c_in: int, default) -> list:
+    """cfg.channels, or `default` when they do not start at c_in
+    (registry.py:343, :464)."""
+    channels = list(cfg.channels)
+    return channels if channels[0] == c_in else list(default)
+
+
+class SetModel(_Model):
+    """The set family (models/set_net.py).  Parameters on `device`, the
+    card unless named."""
+
+    def __init__(self, cfg: C.ModelConfig, box: float, device=None):
+        super().__init__(cfg, box)
+        device = resolve_device(device)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        self.params = set_net.init_set_params(
+            gen, _channels(cfg, 6, C.CHANNELS)).to(device)
+
+    def forward(self, x_in: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return set_net.set_network(self.params.layers(dt),
+                                   x_in.to(dt)).to(torch.float32)
+
+
+class AttnModel(_Model):
+    """The attn family (models/attn.py): ``forward`` with batch
+    statistics (JAX apply), ``apply_eval`` with the frozen (0, 1)
+    statistics (JAX apply_eval, the trainer's eval_fn).  Parameters on
+    `device`, the card unless named."""
+
+    def __init__(self, cfg: C.ModelConfig, box: float, device=None):
+        super().__init__(cfg, box)
+        device = resolve_device(device)
+        gen = torch.Generator().manual_seed(cfg.seed)
+        self.params = attn.init_attn_params(
+            gen, _channels(cfg, 6, C.ATTN_CHANNELS)).to(device)
+
+    def _attn(self, x_in: torch.Tensor, train_mode: bool) -> torch.Tensor:
+        dt = self.dtype
+        return attn.attn_network(
+            self.params.layers(dt), x_in.to(dt),
+            batch_coupled_gate=self.cfg.batch_coupled_gate,
+            train_mode=train_mode).to(torch.float32)
+
+    def forward(self, x_in: torch.Tensor) -> torch.Tensor:
+        return self._attn(x_in, True)
+
+    def apply_eval(self, x_in: torch.Tensor) -> torch.Tensor:
+        return self._attn(x_in, False)
+
+    @property
+    def eval_fn(self):
+        return self.apply_eval
+
+
+class ShiftInvModel(_Model):
     """The shiftinv and shiftinv_vel families: lattice kNN + 4-op graph
-    network.  ``forward`` is the JAX Model.apply (nn.Module.apply has
-    another meaning); knn_fn, apply_with_idx and impl_record keep their JAX
+    network.  knn_fn, apply_with_idx and impl_record keep their JAX
     names.  The parameters live on `device`, the card unless named."""
 
     def __init__(self, cfg: C.ModelConfig, box: float, device=None):
-        super().__init__()
+        super().__init__(cfg, box)
         device = resolve_device(device)
-        self.cfg = cfg
         self.velocity = cfg.family == "shiftinv_vel"
-        default, c_in = ((C.GRAPH_VEL_CHANNELS, 9) if self.velocity
-                         else (C.GRAPH_CHANNELS, 3))
-        channels = list(cfg.channels)
-        if channels[0] != c_in:
-            channels = list(default)
-        self.box = box
+        channels = (_channels(cfg, 9, C.GRAPH_VEL_CHANNELS) if self.velocity
+                    else _channels(cfg, 3, C.GRAPH_CHANNELS))
         self.cells = int(round(box / 4.0))
         self.k = cfg.k_neighbors
         self.window = cfg.knn_window
-        self.dtype = getattr(torch, cfg.dtype)
         gen = torch.Generator().manual_seed(cfg.seed)
         init = (shiftinv.init_shiftinv_vel_params if self.velocity
                 else shiftinv.init_shiftinv_params)
         self.params = init(gen, channels).to(device)
-        self.impl_record: dict = {}
 
     def knn_fn(self, x_in: torch.Tensor) -> torch.Tensor:
         """x_in (b, N, C) -> idx (b, N, K) int32, searched in f32 on the
@@ -184,10 +254,15 @@ class ShiftInvModel(nn.Module):
         return self.apply_with_idx(x_in, self.knn_fn(x_in))
 
 
+MODEL_CLASSES = {"set": SetModel, "attn": AttnModel,
+                 "shiftinv": ShiftInvModel, "shiftinv_vel": ShiftInvModel}
+
+
 def build_model(cfg: C.ModelConfig, box: float = C.BOX_SIZE,
-                device=None) -> ShiftInvModel:
+                device=None) -> _Model:
+    """The family's model on `device` (the card unless named)."""
     C.check_model_config(cfg)
-    return ShiftInvModel(cfg, box, device)
+    return MODEL_CLASSES[cfg.family](cfg, box, device)
 
 
 def exact_knn_host(pos_norm: np.ndarray, k: int) -> np.ndarray:
@@ -224,9 +299,12 @@ def coverage_violations(cfg: C.ModelConfig, box: float, x_in: torch.Tensor) -> i
     them: the lattice search's per-row sum of squared neighbor distances
     against an exact search's, in f64 on the host, with the same 1e-6 tie
     tolerance.  The exact search is the O(N^2) device search up to
-    EXACT_KNN_MAX_PARTICLES and the host k-d tree above.  Call once per
-    run, not per step."""
+    EXACT_KNN_MAX_PARTICLES and the host k-d tree above.  0 for the
+    families without a graph (set, attn).  Call once per run, not per
+    step."""
     C.check_family(cfg.family)
+    if cfg.family in C.GRAPHLESS_FAMILIES:
+        return 0
     cells = int(round(box / 4.0))
     pos, _ = _graph_geometry(x_in, box)
     n = pos.shape[-2]

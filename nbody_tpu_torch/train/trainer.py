@@ -20,13 +20,15 @@ represent the data; the port refuses, as bench.py:192-199 does.  The exact
 check runs on the first batch of every ``fit`` / ``fit_scan``, and the
 O(N) margin monitor at every checkpoint (every chunk of ``fit_scan``)
 triggers one exact check per episode of margin violations; both run
-outside the graph.  After the first step the model's effective neighbor
-route (``impl_record``: direct, block, or masked with its core and mask
-dtype, index, int8 or int4) is printed and logged, as _log_effective_impl
-does in JAX.  With a Saver, every record also goes to metrics.jsonl and
-a checkpoint labelled with the global step is saved every
-``checkpoint_every`` steps of ``fit`` and after every chunk of
-``fit_scan``.  Sharded and ensemble training are not ported yet
+outside the graph, and neither runs for the families without a kNN
+graph (set, attn; trainer.py:279-280).  Evaluation runs the model's
+``eval_fn`` (attn: frozen batch-norm statistics).  After the first step
+the model's effective neighbor route (``impl_record``: direct, block, or
+masked with its core and mask dtype, index, int8 or int4) is printed and
+logged, as _log_effective_impl does in JAX.  With a Saver, every record
+also goes to metrics.jsonl and a checkpoint labelled with the global
+step is saved every ``checkpoint_every`` steps of ``fit`` and after
+every chunk of ``fit_scan``.  Sharded and ensemble training are not ported yet
 (ROADMAP.md).
 """
 
@@ -42,8 +44,7 @@ import torch
 
 from nbody_tpu_torch import config as C
 from nbody_tpu_torch.data.dataset import Dataset, make_dataset, split_batch
-from nbody_tpu_torch.models.registry import (ShiftInvModel, build_model,
-                                             coverage_violations)
+from nbody_tpu_torch.models.registry import build_model, coverage_violations
 from nbody_tpu_torch.ops.knn import lattice_violations
 from nbody_tpu_torch.physics.losses import loss_za
 
@@ -64,7 +65,7 @@ def make_optimizer(model: torch.nn.Module, learn_rate: float) -> torch.optim.Ada
                             betas=(0.9, 0.999), eps=1e-8, capturable=cuda)
 
 
-def make_train_step(model: ShiftInvModel, optimizer: torch.optim.Optimizer,
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                     loss_fn: Callable = loss_za):
     """(x_in, y_true) -> loss (a device scalar; reading it synchronizes)."""
 
@@ -78,12 +79,13 @@ def make_train_step(model: ShiftInvModel, optimizer: torch.optim.Optimizer,
     return step
 
 
-def make_eval_step(model: ShiftInvModel, loss_fn: Callable = loss_za):
-    """(x_in, y_true) -> (pred, loss), without gradients."""
+def make_eval_step(model: torch.nn.Module, loss_fn: Callable = loss_za):
+    """(x_in, y_true) -> (pred, loss) by the model's eval-mode forward
+    (``eval_fn``), without gradients."""
 
     @torch.no_grad()
     def step(x_in: torch.Tensor, y_true: torch.Tensor):
-        pred = model(x_in)
+        pred = model.eval_fn(x_in)
         return pred, loss_fn(pred, y_true)
 
     return step
@@ -119,7 +121,7 @@ class TrainScan:
     capture records them; their Python launch counts move once, at
     capture.  On the CPU the same step runs eagerly, T times a call."""
 
-    def __init__(self, model: ShiftInvModel, optimizer: torch.optim.Optimizer,
+    def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  loss_fn: Callable = loss_za):
         self.optimizer = optimizer
         self.step = make_train_step(model, optimizer, loss_fn)
@@ -217,6 +219,7 @@ class Trainer:
         self.num_inputs = self.dataset.num_input_channels
         self.metrics_log: list[dict] = []
         self.train_error_history: list[float] = []
+        self._graph = cfg.model.family not in C.GRAPHLESS_FAMILIES
         self._cov_confirmed = False
         self._x_dev: Optional[torch.Tensor] = None
 
@@ -265,6 +268,8 @@ class Trainer:
         return v
 
     def _refuse_uncovered(self, x_in: torch.Tensor):
+        if not self._graph:
+            return
         v = self.check_graph_coverage(x_in)
         if v:
             raise CoverageError(
@@ -281,6 +286,8 @@ class Trainer:
     def _monitor_coverage(self, x_in: torch.Tensor, rec: dict):
         """O(N) margin monitor folded into a checkpoint record; a nonzero
         margin count triggers one exact check per violation episode."""
+        if not self._graph:
+            return
         pos = x_in[..., :3] + self.box / 2.0 + x_in[..., 3:6]
         cv = int(lattice_violations(pos, self.dataset.cells, box=self.box,
                                     window=self.cfg.model.knn_window))

@@ -150,12 +150,27 @@ def test_parser_reference_flags():
     ["--scan", "5", "--ensemble", "2"], ["--device_data", "on", "--data_axis", "2"],
     ["-r", "--streaming"], ["--trace", "t", "--particle_axis", "2"],
     ["--masked_core", "4", "4", "4"], ["--remat"],
-    ["--model", "attn"], ["--model", "set"], ["--model", "shiftinv15"],
-    ["--velocity", "--remat"], ["-k", "-1"]])
+    ["--model", "shiftinv15"], ["--velocity", "--remat"]])
 def test_unported_flags_raise(flags):
     args = C.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError):
         C.config_from_args(args)
+
+
+@pytest.mark.parametrize("flags,family", [
+    (["--model", "attn"], "attn"), (["--model", "set"], "set"),
+    (["-k", "-1"], "set")])
+def test_set_and_attn_flags_configure_and_build(flags, family):
+    """The set and attn families are ported: their flags configure, with
+    the parser's CHANNELS and K 14 for -k -1 (as JAX), and the model
+    builds."""
+    from nbody_tpu_torch.models.registry import build_model
+    cfg = C.config_from_args(C.build_parser().parse_args(flags))
+    assert cfg.model.family == family
+    assert cfg.model.channels == tuple(C.CHANNELS)
+    assert cfg.model.k_neighbors == C.NUM_NEIGHBORS
+    model = build_model(cfg.model, device="cpu")
+    assert model.cfg.family == family and len(model.params) == len(C.CHANNELS) - 1
 
 
 def test_run_flags_reach_train_config(monkeypatch):

@@ -152,9 +152,8 @@ def test_init_matches_reference_distributions():
 
 
 def test_build_model_refuses_unported_families():
-    for fam in ("set", "attn", "shiftinv15"):
-        with pytest.raises(NotImplementedError):
-            build_model(C.ModelConfig(family=fam), device="cpu")
+    with pytest.raises(NotImplementedError):
+        build_model(C.ModelConfig(family="shiftinv15"), device="cpu")
     with pytest.raises(NotImplementedError):
         build_model(C.ModelConfig(neighbor_impl="banded"), device="cpu")
     # the int8 mask route is ported (tests/test_torch_mask_route.py)
@@ -233,6 +232,19 @@ def test_network_over_one_graph_plan_matches_jax(dtype, monkeypatch):
         assert cos > 0.998, f"gradient cosine similarity {cos}"
 
 
+@pytest.mark.parametrize("family", ["set", "attn"])
+def test_build_model_builds_set_and_attn(family):
+    """set and attn, refused until they were ported, now build; their
+    forward takes the 6-channel input batch and returns f32 residuals."""
+    model = build_model(C.ModelConfig(family=family, channels=(6, 8, 3),
+                                      dtype="bfloat16"), device="cpu")
+    assert model.cfg.family == family and model.impl_record == {}
+    x_in = torch.from_numpy(_batch()[0])
+    with torch.no_grad():
+        out = model(x_in)
+    assert out.dtype == torch.float32 and out.shape == (2, CELLS ** 3, 3)
+
+
 def test_build_model_defaults_to_the_card(monkeypatch):
     """With no device named the model is built on the card, as the CLI's
     --platform cuda; a machine without one refuses, as resolve_device does."""
@@ -242,6 +254,9 @@ def test_build_model_defaults_to_the_card(monkeypatch):
         build_model(C.ModelConfig())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         registry.ShiftInvModel(C.ModelConfig(), C.BOX_SIZE)
+    for family in ("set", "attn"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build_model(C.ModelConfig(family=family))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert registry.resolve_device() == torch.device("cuda")
     assert registry.resolve_device("cpu") == torch.device("cpu")

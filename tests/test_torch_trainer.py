@@ -54,7 +54,9 @@ SLICE_MODULES = [
     "nbody_tpu_torch.models.registry", "nbody_tpu_torch.train.trainer",
     "nbody_tpu_torch.cli.train", "nbody_tpu_torch.io_.saver",
     "nbody_tpu_torch.io_.checkpoint", "nbody_tpu_torch.physics.baseline",
-    "nbody_tpu_torch.cli.eval"]
+    "nbody_tpu_torch.cli.eval", "nbody_tpu_torch.models.set_net",
+    "nbody_tpu_torch.models.attn", "nbody_tpu_torch.train.rollout",
+    "nbody_tpu_torch.cli.rollout", "nbody_tpu_torch.cli.experiment"]
 
 
 def test_adam_steps_track_optax():
@@ -204,8 +206,9 @@ def test_port_imports_without_jax():
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name == 'jax' or name.startswith(('jax.', 'jaxlib')):\n"
-        "            raise ImportError('jax is blocked: ' + name)\n"
+        "        if name in ('jax', 'nbody_tpu') or name.startswith(\n"
+        "                ('jax.', 'jaxlib', 'nbody_tpu.')):\n"
+        "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import importlib\n"
         f"for m in {SLICE_MODULES!r}:\n"
