@@ -117,7 +117,32 @@ Phases, each fatal on failure (non-zero exit, no result line):
      hop; the same stacked f32 params and x0 (32^3 b2) on the card and
      on the CPU, per-hop MSE within rtol 1e-4 and equal per-hop coverage
      counts; ms a hop by CUDA events, idle share under torch.profiler and
-     peak memory.
+     peak memory;
+ 17. the 15-op family (shiftinv15, GRAPH_CHANNELS, 32^3 b4, K 14, window
+     2, bf16) and the graph options both graph families share: (a) kernel
+     B at K' = 1 over the reverse-edge lookup's (4, 32768*14, C) table, C
+     3-64 in f32 and bf16, bit-equal, and C over the lookup's plan
+     bit-equal to the CPU and identical across two launches; D/E (core
+     (8,8,8)), F/G and H/I (int8, core (8,8,8)) at widths 96 and 128, held
+     as in phases 6 and 10; each timed beside its plain version, library
+     call and bound; (b) the symmetrized graph built on the card equal to
+     the CPU's, bit for bit; (c) Dataset -> Trainer with the coverage
+     guard -> 5 bf16 fit steps -> evaluate on the direct route, one train
+     step launching exactly S15_STEP_LAUNCHES, eager and graph step times
+     with idle share and peak memory; the index, int8 and block routes 3
+     steps each, eager against fit_scan's graph (loss rtol 1e-3), with
+     their own launch constants; (d) card vs CPU f32 loss and forward
+     (relative L2; 32^3 b1, rtol 1e-4), the index, int8 and block routes against the
+     direct route in bf16 (loss rtol 3e-2, gradient cosine > 0.998), and
+     fit_scan against fit over 3 steps (loss rtol 1e-3); (e) cli.train
+     --model shiftinv15 --scan 5 -i 10 then cli.eval, cli.train --impl
+     banded -i 3 and --remat -i 3 on the main path; (f) --remat on the main
+     path (32^3 b4 f32): gradients equal the plain step's (rtol 1e-6),
+     REMAT_STEP_LAUNCHES, peak memory and step time of both, and the remat
+     step captured by fit_scan; (g) the exact and banded kNN at 32^3 b1
+     equal the CPU's, and a non-cube forward (32^3 - 1 points, the exact
+     search) against the CPU's: ids equal, loss and forward (relative L2)
+     within rtol 1e-4.
 The line before the last is {"kernels": [...]}, all eleven kernels with
 their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
 tensor cores); the last line is {"ok": true, "device": {...}}.
@@ -166,6 +191,46 @@ SET_CELLS, SET_BATCH, ATTN_BATCH = 16, 4, 10
 CHAIN_STEPS = 4
 ROLLOUT_HOP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
                         "neighbor_segment_sum": 6}
+# phase 17: the 15-op family (models/shiftinv15.py).  Widths of the
+# reverse-edge lookup (kernel B at K' = 1 over the (b, N*K, C) edge table,
+# C = the layer's input or output width, whichever is smaller) and the
+# block-major routes' fused widths 2C and 2q beyond 64
+LOOKUP_WIDTHS = (3, 16, 32, 64)
+WIDE_WIDTHS = (96, 128)
+CORE_15 = (8, 8, 8)
+# every launch of one 15-op train step on the direct route: forward A 1;
+# the symmetrized graph's id gather B 1 and degree C 1; the features'
+# gather B 1; a layer's fused pool scatter C 1, reverse-edge lookup B 1
+# and col and row broadcast gathers B 2; the last layer's row pool C 1
+# (B 20, C 8).  Backward: layer 0's input needs no gradient, so only its
+# broadcasts' gradients C 2; layers 1-5 the pool scatter's B 1, the
+# lookup's C 1 and the broadcasts' C 2; the row pool's B 1 (B 6, C 17)
+S15_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 26,
+                     "neighbor_segment_sum": 25}
+# the block-major routes (core (8,8,8)): B 7 (the id gather, one lookup a
+# layer) and C 6 (the degree, five lookup gradients); the mask gather 13
+# (the features' gather and one fused gather a layer, five fused-scatter
+# gradients and the row pool's) and the mask scatter 13 (one fused
+# scatter a layer and the row pool, six fused-gather gradients)
+S15_INDEX_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
+                           "neighbor_segment_sum": 6, "idx_dot_gather": 13,
+                           "idx_dot_scatter": 13}
+S15_INT8_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
+                          "neighbor_segment_sum": 6, "mask_dot_gather": 13,
+                          "mask_dot_scatter": 13}
+# the block route (the cube form on F/G): B 7 and C 6 as above; F 19 (the
+# features' gather, two broadcasts a layer, the gradients of layers 1-5's
+# pool scatters and of the row pool) and G 19 (a pool scatter a layer, the
+# row pool, the twelve broadcasts' gradients)
+S15_BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
+                           "neighbor_segment_sum": 6, "block_gather": 19,
+                           "block_scatter": 19}
+# --remat: every layer's forward runs again in the backward pass: the
+# 4-op main step adds B 6 and C 6, the 15-op direct step B 18 and C 7
+REMAT_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 18,
+                       "neighbor_segment_sum": 17}
+S15_REMAT_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 44,
+                           "neighbor_segment_sum": 32}
 # widths the block-selection kernels see on shiftinv_vel: counts, the
 # payload gather (disp + vel), and the channels 9-32-64-64-32-16-6
 SELECT_WIDTHS = (1, 6, 9, 16, 32, 64)
@@ -220,37 +285,40 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=10):
-    """Mean device time of one call of fn: the self time of every CUDA
-    kernel it launches, summed by torch.profiler over `iters` calls (the
-    host's time between launches excluded, which cuda_ms includes)."""
+def cuda_profile(fn, iters):
+    """[(kernel name, self device us, launches)] of the CUDA kernels that
+    `iters` calls of fn launch, summed by torch.profiler after one warm-up
+    call.  A profile that caught no kernel at all (seen once on the card,
+    in a window of launches that ran) is taken again, at most twice."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(e.key, e.self_device_time_total, e.count)
+                for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        if sum(r[1] for r in rows) > 0:
+            return rows
+    raise RuntimeError("chip_smoke: torch.profiler saw no device time in "
+                       "three windows")
+
+
+def device_ms(fn, iters=10):
+    """Mean device time of one call of fn: the self time of every CUDA
+    kernel it launches (the host's time between launches excluded, which
+    cuda_ms includes)."""
+    return sum(us for _, us, _ in cuda_profile(fn, iters)) / iters / 1e3
 
 
 def device_top(fn, iters, per, top=8):
     """The `top` CUDA kernels of fn by self device time under
     torch.profiler: [(name, ms, launches), ...] per 1/`per` of a call."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    rows = sorted(((e.key[:60], e.self_device_time_total / iters / per / 1e3,
-                    e.count / iters / per) for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    rows = sorted(((n[:60], us / iters / per / 1e3, c / iters / per)
+                   for n, us, c in cuda_profile(fn, iters)), key=lambda r: -r[1])
     return [(n, round(ms, 4), c) for n, ms, c in rows[:top]]
 
 
@@ -1177,6 +1245,43 @@ def step_forms(dev, make_trainer, batches, ni, label):
     return out
 
 
+def minibatches(ds, dev, n, batch):
+    rng = ds.minibatch_rng()
+    idxs = np.stack([ds.get_minibatch_indices(rng, batch) for _ in range(n)])
+    return torch.as_tensor(ds.X_train[idxs], device=dev)
+
+
+def eager_vs_graph(dev, dataset, cfg, counted, want, label):
+    """Phases 14 and 17: 3 eager steps against 3 steps of fit_scan's graph
+    (the first eager on a side stream, the capture at the second) on the
+    same batches: loss rtol 1e-3, and the launches of the eager step and
+    the capture twice `want`.  Returns the route's impl_record."""
+    from nbody_tpu_torch.data.dataset import split_batch
+    from nbody_tpu_torch.train.trainer import Trainer
+
+    torch.cuda.empty_cache()
+    b = minibatches(dataset, dev, 3, cfg.train.batch_size)
+    eager = Trainer(cfg, dev, dataset=dataset)
+    ni = eager.num_inputs
+    le = [float(eager.train_step(*split_batch(b[i], ni))) for i in range(3)]
+    rec = dict(eager.model.impl_record)
+    del eager
+    graph = Trainer(cfg, dev, dataset=dataset)
+    reset_counts(*counted)
+    lg = graph.train_scan.run(b, ni).tolist()
+    torch.cuda.synchronize()
+    counts = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    rel = max(abs(a - c) / abs(a) for a, c in zip(le, lg))
+    print(f"{label} {rec}: eager {le} vs graph {lg} (steps 2-3 replayed), max "
+          f"rel {rel:.2e}, bit-equal {le == lg}; launches (eager step + "
+          f"capture) {counts}")
+    check(all(np.isfinite(le)) and rel <= 1e-3, f"{label}: graph losses off eager's")
+    check(counts == {n: 2 * v for n, v in want.items()},
+          f"{label}: launched {counts}, expected twice {want}")
+    del graph
+    return rec
+
+
 def run_scan(dev, C, dataset, ds64, counted):
     """Phase 14: the run around the step -- Trainer.fit_scan, one CUDA
     graph of the train step replayed once a step, against eager fit; its
@@ -1187,7 +1292,6 @@ def run_scan(dev, C, dataset, ds64, counted):
 
     from nbody_tpu_torch.cli import eval as cli_eval
     from nbody_tpu_torch.cli import train as cli_train
-    from nbody_tpu_torch.data.dataset import split_batch
     from nbody_tpu_torch.train.trainer import Trainer
 
     t_phase = time.perf_counter()
@@ -1203,11 +1307,6 @@ def run_scan(dev, C, dataset, ds64, counted):
 
     def flat(trainer):
         return torch.cat([p.detach().ravel() for p in trainer.model.parameters()])
-
-    def minibatches(ds, n, batch):
-        rng = ds.minibatch_rng()
-        idxs = np.stack([ds.get_minibatch_indices(rng, batch) for _ in range(n)])
-        return torch.as_tensor(ds.X_train[idxs], device=dev)
 
     def launches():
         torch.cuda.synchronize()
@@ -1239,7 +1338,7 @@ def run_scan(dev, C, dataset, ds64, counted):
     # (b) launches: a fresh trainer's first scanned step runs eagerly, the
     # capture follows at the next; replays launch no wrapper
     cfg = cfg_of(dataset)
-    batches = minibatches(dataset, 20, BATCH)
+    batches = minibatches(dataset, dev, 20, BATCH)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1290,26 +1389,8 @@ def run_scan(dev, C, dataset, ds64, counted):
         ("int8", dataset, cfg_of(dataset, mask_dtype="int8"), INT8_STEP_LAUNCHES),
         ("int4", dataset, cfg_of(dataset, mask_dtype="int4"), INT8_STEP_LAUNCHES))
     for name, ds, cfg, want in routes:
-        torch.cuda.empty_cache()
-        b = minibatches(ds, 3, cfg.train.batch_size)
-        eager = Trainer(cfg, dev, dataset=ds)
-        ni = eager.num_inputs
-        le = [float(eager.train_step(*split_batch(b[i], ni))) for i in range(3)]
-        del eager
-        graph = Trainer(cfg, dev, dataset=ds)
-        reset_counts(*counted)
-        lg = graph.train_scan.run(b, ni).tolist()
-        counts = launches()
-        rec = graph.model.impl_record
-        rel = max(abs(a - c) / abs(a) for a, c in zip(le, lg))
-        print(f"{name} route {rec}: eager {le} vs graph {lg} (steps 2-3 "
-              f"replayed), max rel {rel:.2e}, bit-equal {le == lg}; launches "
-              f"(eager step + capture) {counts}")
-        check(rel <= 1e-3, f"{name}: graph losses off eager's")
-        check(counts == {n: 2 * v for n, v in want.items()},
-              f"{name}: launched {counts}, expected twice {want}")
+        eager_vs_graph(dev, ds, cfg, counted, want, f"{name} route")
         summary[f"route_{name}"] = "captured"
-        del graph
 
     # (e) the CLI in-process: train with --scan and device data, eval, -r,
     # --trace, under a temporary experiments directory
@@ -1445,27 +1526,11 @@ def run_set_attn(dev, C, dataset, counted):
         cfg = C.Config(ds.cfg, mcfg(family, "bfloat16"),
                        C.TrainConfig(num_iters=3, batch_size=batch,
                                      learn_rate=1e-3))
-        rng = ds.minibatch_rng()
-        b = torch.as_tensor(ds.X_train[np.stack([
-            ds.get_minibatch_indices(rng, batch) for _ in range(20)])], device=dev)
-        eager = Trainer(cfg, dev, dataset=ds)
-        le = [float(eager.train_step(*split_batch(b[i]))) for i in range(3)]
-        del eager
-        graph = Trainer(cfg, dev, dataset=ds)
-        reset_counts(*counted)
-        lg = graph.train_scan.run(b[:3], 6).tolist()
-        torch.cuda.synchronize()
-        counts = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
-        rel = max(abs(a - c) / abs(a) for a, c in zip(le, lg))
-        print(f"{family} bf16 ({label}): eager {le} vs graph {lg} (steps 2-3 "
-              f"replayed), max rel {rel:.2e}, bit-equal {le == lg}; wrapper "
-              f"launches {counts}")
-        check(rel <= 1e-3, f"{family}: graph losses off eager's")
-        check(not counts, f"{family} launched kernels of the graph routes")
-        del graph
+        # no wrapper launches: set and attn run no kernel of the repo
+        eager_vs_graph(dev, ds, cfg, counted, {}, f"{family} bf16 ({label})")
         summary[family] = step_forms(
-            dev, lambda: Trainer(cfg, dev, dataset=ds), b, 6,
-            f"{family} {label} bf16")
+            dev, lambda: Trainer(cfg, dev, dataset=ds),
+            minibatches(ds, dev, 20, batch), 6, f"{family} {label} bf16")
 
     # (e) cli.experiment with the reference's defaults, 20 iterations
     with experiments_dir() as exp:
@@ -1580,6 +1645,453 @@ def run_rollout(dev, C, counted):
                                           "CPU disagree")
     summary["seconds"] = time.perf_counter() - t_phase
     print(f"rollout (phase 16): {json.dumps(summary)}")
+
+
+# the repo's CUDA kernels by symbol: A, B, C / E / G (one segment-sum
+# body), D / F, H, I
+REPO_SYMBOLS = ("lattice_knn_kernel", "gather_rows_kernel", "segment_sum_kernel",
+                "patch_gather_kernel", "mask_gather_kernel", "mask_scatter_kernel")
+
+
+def device_breakdown(fn, iters, top=10):
+    """(device busy ms a call, elementwise-kernel ms a call, the `top`
+    kernels [(name, ms, launches) a call], {repo kernel symbol: [ms,
+    launches] a call}) of fn under torch.profiler."""
+    rows = sorted(((n[:60], us / iters / 1e3, c / iters)
+                   for n, us, c in cuda_profile(fn, iters)), key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    elementwise = sum(r[1] for r in rows if "elementwise" in r[0].lower())
+    repo = {}
+    for n, ms, c in rows:
+        for sym in REPO_SYMBOLS:
+            if sym in n:
+                acc = repo.setdefault(sym, [0.0, 0.0])
+                acc[0] += ms
+                acc[1] += c
+    return (busy, elementwise, [(n, round(ms, 4), c) for n, ms, c in rows[:top]],
+            {k: [round(v[0], 4), v[1]] for k, v in repo.items()})
+
+
+def time_row(label, kern, plain, library, bnd):
+    """Print and return one kernel timing at a phase 17 shape: kernel
+    (CUDA events and device time), plain version and library call, beside
+    the bound `bnd` = (bound_ms, bound_by)."""
+    ms, plain_ms = cuda_ms(kern, iters=10), cuda_ms(plain, iters=5)
+    lib_ms = cuda_ms(library, iters=10) if library is not None else None
+    dev_ms = device_ms(kern)
+    b_ms, by = bnd
+    lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
+    print(f"time {label}: kernel {ms:.4f} ms (device {dev_ms:.4f}), plain "
+          f"{plain_ms:.4f} ms, library {lib}, bound {b_ms:.4f} ms ({by}); "
+          f"share {b_ms / ms:.3f}")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bound_ms": b_ms, "bound_by": by}
+
+
+def check_15op_kernels(dev, idx):
+    """Phase 17 (a, b): the symmetrized graph and the reverse-edge lookup
+    built on the card equal to the CPU's; kernel B at K' = 1 over the
+    lookup's table and C over its plan, then D/E, F/G and H/I at widths 96
+    and 128, each held against its plain version and timed.  Returns the
+    card's graph."""
+    from nbody_tpu_torch.models import shiftinv15 as S15
+    from nbody_tpu_torch.ops import blocked
+    from nbody_tpu_torch.ops.kernels import banded_kernels as B
+    from nbody_tpu_torch.ops.kernels import block_kernels as BK
+    from nbody_tpu_torch.ops.kernels import idx_kernels as IK
+    from nbody_tpu_torch.ops.kernels import mask_kernels as MK
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+
+    def randn(shape, dt=bf):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    # (b) the graph and the lookup, card against CPU
+    graph = S15.build_block_sym_graph(idx)
+    graph_cpu = S15.build_block_sym_graph(idx.cpu())
+    same = [torch.equal(a.cpu(), c) for a, c in zip(graph, graph_cpu)]
+    lookup = S15.reverse_lookup(graph)
+    lookup_cpu = S15.reverse_lookup(graph_cpu)
+    same_lookup = torch.equal(lookup.ids.cpu(), lookup_cpu.ids) and all(
+        torch.equal(a.cpu(), c) for a, c in zip(lookup.plan, lookup_cpu.plan))
+    print(f"symmetrized graph on the card (idx, rev_pos, mask_b, deg) equal to "
+          f"the CPU's: {same}; live reversed edges "
+          f"{float(graph.mask_b.mean()):.4f} of block B, degree max "
+          f"{float(graph.deg.max())}; lookup ids and plan equal: {same_lookup}")
+    check(all(same) and same_lookup, "the card's symmetrized graph or lookup "
+                                     "differs from the CPU's")
+    ids, plan, plan_cpu = lookup.ids, lookup.plan, lookup_cpu.plan
+    b, rows, _ = ids.shape
+
+    # (a) kernel B at K' = 1 and kernel C over the lookup's plan
+    flat = B._flat_targets(ids, rows)
+    for c in LOOKUP_WIDTHS:
+        for dt in (torch.float32, bf):
+            table = randn((b, rows, c), dt)
+            got = B.neighbor_gather(table, ids)
+            check(torch.equal(got, B.gather_plain(table, ids))
+                  and torch.equal(got, B.neighbor_gather(table, ids)),
+                  f"kernel B lookup C={c} {dt} not bit-equal or not repeatable")
+            e = randn((b, rows, 1, c), dt)
+            hold_segment_sum("neighbor_segment_sum",
+                             lambda: B.neighbor_segment_sum(e, plan),
+                             lambda: B.segment_sum_plain(e.cpu(), plan_cpu),
+                             lambda *_: None, f"lookup plan C={c} {dt}")
+            if dt == bf or c == 64:
+                out = got
+                time_row(f"neighbor_gather lookup K'=1 C={c} {dt}",
+                         lambda: B.neighbor_gather(table, ids),
+                         lambda: B.gather_plain(table, ids),
+                         lambda: table.reshape(-1, c).index_select(0, flat),
+                         bound(nbytes(table, ids, out)))
+                acc = torch.zeros((b * rows, c), device=dev)
+                ef = e.float().reshape(-1, c)
+                out = B.neighbor_segment_sum(e, plan)
+                time_row(f"neighbor_segment_sum lookup plan C={c} {dt}",
+                         lambda: B.neighbor_segment_sum(e, plan),
+                         lambda: B.segment_sum_plain(e, plan),
+                         lambda: acc.index_add_(0, flat, ef),
+                         bound(nbytes(e, plan.order, plan.offsets, out),
+                               float(e.numel())))
+    print(f"kernel B at K'=1 over ({b}, {rows}, C) and C over the lookup's plan, "
+          f"C in {LOOKUP_WIDTHS}, f32 and bf16: bit-equal, repeatable")
+
+    # D/E at core (8,8,8) and F/G at the block route's core, widths 96, 128
+    p8 = blocked.patch_size(CELLS, WINDOW, CORE_15)
+    plan8 = blocked.block_index_plan(idx, CELLS, WINDOW, CORE_15, drop_self_slot0=True)
+    plan8_cpu = BK.BlockPlan(*(t.cpu() for t in plan8))
+    pb = blocked.patch_size(CELLS, WINDOW, blocked.CORE)
+    planb = blocked.block_index_plan(idx, CELLS, WINDOW, blocked.CORE)
+    planb_cpu = BK.BlockPlan(*(t.cpu() for t in planb))
+    check(all(torch.equal(a, c) for a, c in zip(planb_cpu, BK.block_plan(
+        planb.pos.cpu(), pb))), "the card's block plan differs from the CPU's")
+    for name_g, name_s, pl, pl_cpu, p, gk, gp, sk, sp in (
+            ("idx_dot_gather", "idx_dot_scatter", plan8, plan8_cpu, p8,
+             IK.dot_gather, IK.dot_gather_plain,
+             lambda q, x, n: IK.dot_scatter(q, x, n),
+             lambda q, x, n: IK.dot_scatter_plain(q, x, n)),
+            ("block_gather", "block_scatter", planb, planb_cpu, pb,
+             lambda q, x: BK.block_gather(q, x, True),
+             lambda q, x: BK.block_gather_plain(q, x, True),
+             lambda q, x, n: BK.block_scatter(q, x, n, True),
+             lambda q, x, n: BK.block_scatter_plain(q, x, n, True))):
+        pos = pl.pos
+        nbt, nb, et = pos.shape
+        blk = torch.arange(nbt * nb, device=dev).reshape(nbt, nb, 1)
+        valid = (pos >= 0) & (pos < p)
+        gids = torch.where(valid, blk * p + pos, 0).reshape(-1)
+        for c in WIDE_WIDTHS:
+            pat, ev = randn((nbt, nb, p, c)), randn((nbt, nb, et, c))
+            got = gk(pos, pat)
+            check(torch.equal(got, gp(pos, pat)) and torch.equal(got, gk(pos, pat)),
+                  f"{name_g} C={c} not bit-equal or not repeatable")
+            hold_segment_sum(name_s, lambda: sk(pl, ev, p),
+                             lambda: sp(pl_cpu, ev.cpu(), p), lambda *_: None,
+                             f"C={c} bf16")
+            core = CORE_15 if name_g.startswith("idx") else blocked.CORE
+            flat_pat = pat.reshape(-1, c)
+            time_row(f"{name_g} core {core} C={c} bf16", lambda: gk(pos, pat),
+                     lambda: gp(pos, pat), lambda: flat_pat.index_select(0, gids),
+                     bound(nbytes(pos, pat, got)))
+            time_row(f"{name_s} core {core} C={c} bf16", lambda: sk(pl, ev, p),
+                     lambda: sp(pl, ev, p), scatter_library(pl, ev, p),
+                     scatter_bound(pl, ev, sk(pl, ev, p)))
+        print(f"kernels {name_g}/{name_s} {tuple(pos.shape)} P={p} C in "
+              f"{WIDE_WIDTHS}: gathers bit-equal, segment sums bit-equal to the "
+              "CPU, all repeatable")
+
+    # H/I on the 15-op's int8 masks (core (8,8,8)), widths 96 and 128
+    masks = blocked.block_masks(idx, CELLS, WINDOW, torch.int8, CORE_15,
+                                drop_self_slot0=True)
+    mb, nb, et, p = masks.shape
+    wide = MK.widen(masks).to(bf).reshape(mb * nb, et, p)
+    out_kw = ({"out_dtype": torch.float32} if "out_dtype" in (torch.bmm.__doc__ or "")
+              else {})
+    for c in WIDE_WIDTHS:
+        pat, ev = randn((mb, nb, p, c)), randn((mb, nb, et, c))
+        got = MK.dot_gather(masks, pat)
+        check(torch.equal(got, MK.mask_dot_gather_plain(masks, pat))
+              and torch.equal(got, MK.dot_gather(masks, pat)),
+              f"mask_dot_gather core {CORE_15} C={c} not bit-equal or not repeatable")
+        got = MK.dot_scatter(masks, ev)
+        _, worst = scatter_worst(got, MK.mask_dot_scatter_plain(masks, ev),
+                                 MK.mask_dot_scatter_plain(masks, ev.abs()), False)
+        check(worst <= 0 and torch.equal(got, MK.dot_scatter(masks, ev)),
+              f"mask_dot_scatter core {CORE_15} C={c} out of tolerance or not "
+              "repeatable")
+        ops = 2.0 * mb * nb * et * p * c
+        pl, el = pat.reshape(mb * nb, p, c), ev.reshape(mb * nb, et, c)
+        time_row(f"mask_dot_gather int8 core {CORE_15} C={c}",
+                 lambda: MK.dot_gather(masks, pat),
+                 lambda: MK.mask_dot_gather_plain(masks, pat),
+                 lambda: torch.bmm(wide, pl, **out_kw),
+                 bound(nbytes(masks, pat) + mb * nb * et * c * 4, ops,
+                       H100_BF16_TC_OPS))
+        time_row(f"mask_dot_scatter int8 core {CORE_15} C={c}",
+                 lambda: MK.dot_scatter(masks, ev),
+                 lambda: MK.mask_dot_scatter_plain(masks, ev),
+                 lambda: torch.bmm(wide.transpose(1, 2), el, **out_kw),
+                 bound(nbytes(masks, ev) + mb * nb * p * c * 4, ops,
+                       H100_BF16_TC_OPS))
+    print(f"kernels H/I int8 {tuple(masks.shape)} C in {WIDE_WIDTHS}: gather "
+          "bit-equal, scatter within 1e-5 of the summed |terms|, repeatable")
+    del masks, wide
+    return graph
+
+
+def route_cfg(C, ds, family="shiftinv15", dtype="bfloat16", iters=3, batch=BATCH,
+              **model):
+    """Phase 17's configurations: GRAPH_CHANNELS, K 14, window 2."""
+    return C.Config(ds.cfg, C.ModelConfig(
+        family=family, channels=tuple(C.GRAPH_CHANNELS), k_neighbors=K,
+        dtype=dtype, knn_window=WINDOW, **model),
+        C.TrainConfig(num_iters=iters, batch_size=batch, learn_rate=1e-3,
+                      checkpoint_every=iters))
+
+
+def profile_step(cfg, dev, dataset, x, y, label, out):
+    """One route's eager 15-op train step under torch.profiler: device
+    busy, the elementwise kernels' share, the top kernels and the repo's
+    kernels a step, printed and added to `out`."""
+    from nbody_tpu_torch.train.trainer import Trainer
+    trainer = Trainer(cfg, dev, dataset=dataset)
+    busy, elementwise, top, repo = device_breakdown(
+        lambda: trainer.train_step(x, y), 3)
+    print(f"15-op {label} step under torch.profiler: device busy {busy:.3f} ms, "
+          f"elementwise kernels {elementwise:.3f} ms ({elementwise / busy:.3f}); "
+          f"the repo's kernels [ms, launches] a step {repo}; top kernels (name, "
+          f"ms, launches a step): {top}")
+    out.update(busy_profile_ms=busy, elementwise_ms=elementwise, repo_kernels=repo)
+    del trainer
+
+
+def run_shiftinv15(dev, C, dataset, idx0, counted):
+    """Phase 17 (a-e): the 15-op family at full width on every route, its
+    parity checks, and the CLI."""
+    from nbody_tpu_torch.cli import eval as cli_eval
+    from nbody_tpu_torch.cli import train as cli_train
+    from nbody_tpu_torch.data.dataset import split_batch
+    from nbody_tpu_torch.models.registry import build_model
+    from nbody_tpu_torch.physics.losses import loss_za
+    from nbody_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    summary = {}
+    check_15op_kernels(dev, idx0)
+    torch.cuda.empty_cache()
+
+    # (c) the direct route through its entry points
+    cfg = route_cfg(C, dataset, iters=5)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_every=1))
+    trainer = Trainer(cfg, dev, dataset=dataset)
+    x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
+    cov = trainer.check_graph_coverage(x)
+    print(f"15-op coverage guard: {cov} violations")
+    check(cov == 0, "the lattice window does not cover the data")
+    reset_counts(*counted)
+    t0 = time.perf_counter()
+    trainer.fit(verbose=True)
+    fit_s = time.perf_counter() - t0
+    errors, preds = trainer.evaluate("test", verbose=True)
+    torch.cuda.synchronize()
+    counts = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    losses = [r["loss"] for r in trainer.metrics_log if "step" in r]
+    print(f"15-op fit: 5 steps in {fit_s:.2f} s (host clock); losses {losses}; "
+          f"launches during fit + evaluate {counts}")
+    check(len(losses) == 5 and np.isfinite(losses).all(), "non-finite 15-op loss")
+    check(set(counts) == {"lattice_knn", "neighbor_gather", "neighbor_segment_sum"},
+          f"the 15-op direct route launched {counts}")
+    check(preds.shape == (2, 4, CELLS ** 3, 3) and np.isfinite(preds).all()
+          and np.isfinite(errors).all(), f"15-op evaluate cube {preds.shape}")
+    check(trainer.model.impl_record.get("impl") == "direct",
+          f"15-op route is {trainer.model.impl_record}")
+    print(f"15-op evaluate: cube {preds.shape}, errors {errors.tolist()}")
+    one_step_launches(trainer, x, y, counted, S15_STEP_LAUNCHES, "15-op direct")
+    del trainer
+    torch.cuda.empty_cache()
+    batches = minibatches(dataset, dev, 10, BATCH)
+    summary["direct"] = step_forms(
+        dev, lambda: Trainer(cfg, dev, dataset=dataset), batches, 6,
+        "15-op 32^3 b4 K14 w2 bf16 direct")
+    profile_step(cfg, dev, dataset, x, y, "direct", summary["direct"])
+
+    # the other routes: eager against fit_scan's graph, 3 steps each
+    for label, model, want, impl in (
+            ("index", dict(mask_dtype="index"), S15_INDEX_STEP_LAUNCHES, "masked"),
+            ("int8", dict(mask_dtype="int8"), S15_INT8_STEP_LAUNCHES, "masked"),
+            ("block", dict(neighbor_impl="block"), S15_BLOCK_STEP_LAUNCHES, "block")):
+        rcfg = route_cfg(C, dataset, **model)
+        rec = eager_vs_graph(dev, dataset, rcfg, counted, want,
+                             f"15-op {label} route")
+        check(rec.get("impl") == impl and (impl != "masked"
+                                           or rec.get("core") == list(CORE_15)),
+              f"15-op {label} route is {rec}")
+        trainer = Trainer(rcfg, dev, dataset=dataset)
+        ms, peak = step_time(trainer, x, y, 3, f"15-op 32^3 b4 K14 w2 bf16 "
+                                               f"{label} route")
+        summary[label] = {"ms": ms, "peak_mib": peak / 2**20}
+        del trainer
+        profile_step(rcfg, dev, dataset, x, y, label, summary[label])
+
+    # (d) parity: card vs CPU in f32 (32^3 b1), the routes against direct
+    # in bf16, and fit_scan against fit
+    mcfg = route_cfg(C, dataset, dtype="float32").model
+    xb, yb = split_batch(torch.as_tensor(dataset.X_test[:1]))
+    res = {}
+    state = None
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(mcfg, box=dataset.box, device=d)
+        if state is None:
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        with torch.no_grad():
+            pred = model(xb.to(d))
+            res[key] = (pred.cpu(), float(loss_za(pred, yb.to(d))))
+    (pd, ld), (pc, lc) = res["card"], res["cpu"]
+    rel = abs(ld - lc) / abs(lc)
+    fwd = float((pd - pc).norm() / pc.norm())
+    print(f"15-op card vs CPU f32 (32^3 b1): loss {ld!r} vs {lc!r} (rel "
+          f"{rel:.2e}); forward rel L2 {fwd:.2e}, max |diff| / max |cpu| "
+          f"{float((pd - pc).abs().max() / pc.abs().max()):.2e}")
+    check(rel <= 1e-4 and fwd <= 1e-4, "15-op card and CPU f32 disagree")
+    for model in (dict(mask_dtype="index"), dict(mask_dtype="int8"),
+                  dict(neighbor_impl="block")):
+        cross_route(dev, C, dataset, family="shiftinv15", **model)
+    cfg3 = route_cfg(C, dataset)
+    eager, graph = Trainer(cfg3, dev, dataset=dataset), Trainer(cfg3, dev, dataset=dataset)
+    eager.fit(verbose=False)
+    graph.fit_scan(scan_chunk=3, verbose=False)
+    le, lg = eager.train_error_history, graph.train_error_history
+    rel = abs(le[-1] - lg[-1]) / abs(le[-1])
+    print(f"15-op fit vs fit_scan, 3 steps bf16: {le} vs {lg} (rel {rel:.2e})")
+    check(len(le) == len(lg) == 1 and rel <= 1e-3, "15-op fit_scan off fit")
+    del eager, graph
+    torch.cuda.empty_cache()
+
+    # (e) the CLI in-process
+    flags = ["-k", str(K), "--cells", str(CELLS), "--knn_window", str(WINDOW),
+             "--dtype", "bfloat16", "--synthetic", "--samples", "16", "-t", "4",
+             "-b", str(BATCH)]
+    with experiments_dir() as exp:
+        out = run_cli(cli_train.main, ["--model", "shiftinv15"] + flags + [
+            "--scan", "5", "-i", "10", "-n", "s15"])
+        med = [ln for ln in out.splitlines() if "median :" in ln][-1]
+        out = run_cli(cli_eval.main, ["--model", "shiftinv15"] + flags + ["-n", "s15"])
+        check("Restored checkpoint at step 10" in out and
+              [ln for ln in out.splitlines() if "median :" in ln][-1] == med,
+              "cli.eval does not reproduce the 15-op train run")
+        cube = np.load(os.path.join(exp, "ZA-FPM_0_s15", "Results",
+                                    "X_0_prediction.npy"))
+        check(cube.shape == (2, 4, CELLS ** 3, 3) and np.isfinite(cube).all(),
+              f"15-op eval cube {cube.shape}")
+        for extra, impl in ((["--impl", "banded"], "banded"), (["--remat"], "direct")):
+            out = run_cli(cli_train.main, ["--model", "shiftinv"] + flags + extra
+                          + ["-i", "3", "-n", "opt"])
+            check(f"'impl': '{impl}'" in out and "Training finished!" in out,
+                  f"cli.train {extra} did not run its route")
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"shiftinv15 (phase 17 a-e): {json.dumps(summary)}")
+
+
+def run_graph_options(dev, C, dataset, counted):
+    """Phase 17 (f, g): --remat on the main path and the 15-op direct
+    route, and the exact and banded kNN and a non-cube forward, card
+    against CPU."""
+    from nbody_tpu_torch.data.dataset import split_batch
+    from nbody_tpu_torch.models.registry import build_model
+    from nbody_tpu_torch.ops.banded import default_band
+    from nbody_tpu_torch.ops.knn import knn_periodic_batch
+    from nbody_tpu_torch.physics.losses import loss_za
+    from nbody_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    summary = {}
+    # (f) remat on the main path, f32: gradients, launches, memory, time
+    x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
+    grads, state = {}, None
+    for remat in (False, True):
+        cfg = route_cfg(C, dataset, family="shiftinv", dtype="float32", remat=remat)
+        trainer = Trainer(cfg, dev, dataset=dataset)
+        if state is None:      # a copy: the steps below update the params
+            state = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+        else:
+            trainer.model.load_state_dict(state)
+        trainer.optimizer.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        loss = loss_za(trainer.model(x), y)
+        loss.backward()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        grads[remat] = torch.cat([p.grad.ravel() for p in trainer.model.parameters()])
+        print(f"main path f32 32^3 b4, remat={remat}: loss {float(loss.detach())!r}, "
+              f"peak of one forward + backward {peak / 2**20:.1f} MiB")
+        summary[f"remat_{remat}_peak_mib"] = peak / 2**20
+        one_step_launches(trainer, x, y, counted,
+                          REMAT_STEP_LAUNCHES if remat else
+                          {"lattice_knn": 1, "neighbor_gather": 12,
+                           "neighbor_segment_sum": 11},
+                          f"main path remat={remat}")
+        summary[f"remat_{remat}"] = step_time(trainer, x, y, 5,
+                                              f"main path f32, remat={remat}")
+        del trainer
+    g0, g1 = grads[False], grads[True]
+    diff = float((g1 - g0).abs().max() / g0.abs().max())
+    print(f"remat gradients against the plain step's: bit-equal "
+          f"{torch.equal(g0, g1)}, max |diff| / max |grad| {diff:.2e}")
+    check(torch.allclose(g1, g0, rtol=1e-6, atol=0), "remat gradients differ")
+    eager_vs_graph(dev, dataset, route_cfg(C, dataset, family="shiftinv",
+                                           remat=True), counted,
+                   REMAT_STEP_LAUNCHES, "main path bf16 --remat")
+    eager_vs_graph(dev, dataset, route_cfg(C, dataset, remat=True), counted,
+                   S15_REMAT_STEP_LAUNCHES, "15-op direct bf16 --remat")
+
+    # (g) the exact and banded kNN at 32^3 b1, card against CPU
+    xb, yb = split_batch(torch.as_tensor(dataset.X_test[:1]))
+    pn = pos_norm(xb, dataset.box)
+    band = default_band(CELLS, WINDOW)
+    for label, kw in (("exact", {}), (f"banded (band {band})", {"band": band})):
+        t0 = time.perf_counter()
+        got = knn_periodic_batch(pn.to(dev), K, **kw)
+        torch.cuda.synchronize()
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = knn_periodic_batch(pn, K, **kw)
+        t_cpu = time.perf_counter() - t0
+        rows = int((got.cpu() != want).any(-1).sum())
+        print(f"{label} kNN 32^3 b1 K{K}: {rows} rows differ from the CPU's "
+              f"(card {t_card:.2f} s, CPU {t_cpu:.2f} s, host clock)")
+        check(rows == 0, f"the {label} kNN on the card differs from the CPU's")
+    # a non-cube forward: 32^3 - 1 points, the lattice method's exact
+    # fallback, f32, card against CPU
+    xn, yn = xb[:, :-1].contiguous(), yb[:, :-1].contiguous()
+    mcfg = route_cfg(C, dataset, family="shiftinv", dtype="float32").model
+    res, state = {}, None
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = build_model(mcfg, box=dataset.box, device=d)
+        if state is None:
+            state = model.state_dict()
+        else:
+            model.load_state_dict(state)
+        with torch.no_grad():
+            idx = model.knn_fn(xn.to(d))
+            pred = model.apply_with_idx(xn.to(d), idx)
+            res[key] = (idx.cpu(), pred.cpu(), float(loss_za(pred, yn.to(d))),
+                        dict(model.impl_record))
+    (id_d, p_d, l_d, r_d), (id_c, p_c, l_c, _) = res["card"], res["cpu"]
+    rel = abs(l_d - l_c) / abs(l_c)
+    fwd = float((p_d - p_c).norm() / p_c.norm())
+    print(f"non-cube forward ({CELLS ** 3 - 1} points, {r_d['impl']} route): ids "
+          f"equal {torch.equal(id_d, id_c)}; loss {l_d!r} vs {l_c!r} (rel "
+          f"{rel:.2e}); forward rel L2 {fwd:.2e}, max |diff| / max |cpu| "
+          f"{float((p_d - p_c).abs().max() / p_c.abs().max()):.2e}")
+    check(torch.equal(id_d, id_c) and rel <= 1e-4 and fwd <= 1e-4
+          and r_d["impl"] == "direct", "the non-cube forward disagrees with the CPU")
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"graph options (phase 17 f-g): {json.dumps(summary)}")
 
 
 def check_fused(dev, idx):
@@ -1727,21 +2239,23 @@ def check_fused(dev, idx):
     return rec, launches
 
 
-def cross_route(dev, C, dataset, mask_dtype="index"):
-    """Phases 9 and 12: one batch, one set of params, the index (D/E) or
-    int8 (H/I) route against the direct route (B/C), bf16 loss and
-    gradients."""
+def cross_route(dev, C, dataset, mask_dtype="index", family="shiftinv", **route):
+    """Phases 9, 12 and 17: one batch, one set of params, the index (D/E),
+    int8 (H/I) or, with neighbor_impl="block", block (F/G) route against
+    the direct route (B/C) of `family`, bf16 loss and gradients."""
     from nbody_tpu_torch.data.dataset import split_batch
     from nbody_tpu_torch.models.registry import build_model
     from nbody_tpu_torch.physics.losses import loss_za
 
+    route = route or {"mask_dtype": mask_dtype}
+    label = route.get("mask_dtype", route.get("neighbor_impl"))
     x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
     out = {}
     params = None
-    for route, mdt in (("direct", "auto"), ("masked", mask_dtype)):
+    for name, kw in (("direct", {}), ("route", route)):
         model = build_model(C.ModelConfig(
-            family="shiftinv", channels=tuple(C.GRAPH_CHANNELS), k_neighbors=K,
-            dtype="bfloat16", knn_window=WINDOW, mask_dtype=mdt),
+            family=family, channels=tuple(C.GRAPH_CHANNELS), k_neighbors=K,
+            dtype="bfloat16", knn_window=WINDOW, **kw),
             box=4.0 * CELLS, device=dev)
         if params is None:
             params = model.params
@@ -1750,16 +2264,19 @@ def cross_route(dev, C, dataset, mask_dtype="index"):
         loss = loss_za(model(x), y)
         loss.backward()
         grads = torch.cat([p.grad.double().ravel() for p in model.parameters()])
-        out[route] = (float(loss.detach()), grads, dict(model.impl_record))
-    (ld, gd, rd), (li, gi, ri) = out["direct"], out["masked"]
+        out[name] = (float(loss.detach()), grads, dict(model.impl_record))
+        del model
+    (ld, gd, rd), (li, gi, ri) = out["direct"], out["route"]
     rel = abs(li - ld) / abs(ld)
     cos = float(gd @ gi / (gd.norm() * gi.norm()))
-    print(f"cross-route bf16 (32^3 b4): direct {rd['impl']} loss {ld!r}, "
-          f"{mask_dtype} {ri['impl']} {ri['core']} loss {li!r}: rel {rel:.2e}, "
+    print(f"cross-route bf16 {family} (32^3 b4): direct {rd['impl']} loss {ld!r}, "
+          f"{label} {ri['impl']} {ri['core']} loss {li!r}: rel {rel:.2e}, "
           f"gradient cosine {cos:.6f}")
-    check(rd["impl"] == "direct" and ri["impl"] == "masked"
-          and ri["mask_dtype"] == mask_dtype, "routes not taken")
-    check(rel <= 3e-2 and cos > 0.998, f"{mask_dtype} and direct routes disagree")
+    check(rd["impl"] == "direct" and ri["impl"] == (
+        "block" if label == "block" else "masked") and ri["mask_dtype"] == (
+        None if label == "block" else label), "routes not taken")
+    check(rel <= 3e-2 and cos > 0.998, f"{family}: {label} and direct routes "
+                                       "disagree")
 
 
 def main() -> int:
@@ -1920,6 +2437,9 @@ def main() -> int:
     run_set_attn(dev, C, dataset, counted)
     # 16. the redshift-chain rollout at full width, cli.rollout
     run_rollout(dev, C, counted)
+    # 17. the 15-op family on every route, --remat, the kNN methods
+    run_shiftinv15(dev, C, dataset, idx0, counted)
+    run_graph_options(dev, C, dataset, counted)
 
     kernels = [{"name": n, "route": "cuda", "source": REPO_KERNELS[n][0],
                 "replaces": REPO_KERNELS[n][1], "launches": counters[n],

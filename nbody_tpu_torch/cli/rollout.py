@@ -63,10 +63,13 @@ def margin_monitor(mcfg: C.ModelConfig, dataset: Dataset):
     the count of particles displaced beyond the lattice window's
     conservative margin (ops/knn.lattice_violations), on the device.
     Displacements grow along the chain, so the window that covered the
-    first hop can stop covering later ones.  None for set and attn."""
-    if mcfg.family in C.GRAPHLESS_FAMILIES:
-        return None
+    first hop can stop covering later ones.  None for set and attn, and
+    where the graph does not come from the lattice search (knn_method
+    other than "lattice", or not a full cells^3 cube; cli/rollout.py:80-100)."""
     cells, box = dataset.cells, dataset.box
+    if (mcfg.family in C.GRAPHLESS_FAMILIES or mcfg.knn_method != "lattice"
+            or dataset.num_particles != cells ** 3):
+        return None
 
     def monitor(x_in):
         pos = x_in[..., :3] + box / 2.0 + x_in[..., 3:6]

@@ -3,19 +3,21 @@ nbody_tpu/config.py).
 
 The constants and flag names are the JAX package's.  The dataclasses hold
 only what the port runs; every flag of a path the port does not run yet
-(sharding, ensembles, streaming, rematerialization, the TPU mask
-encodings, the shiftinv15 family) raises NotImplementedError when set to
-a non-default value instead of being ignored.  ROADMAP.md lists what
-waits.
+(sharding, ensembles, streaming) raises NotImplementedError when set to a
+non-default value instead of being ignored.  ROADMAP.md lists what waits.
 
 The neighbor routes: ``--impl masked`` (the default) runs the direct
 kernels B/C; with ``--mask_dtype index`` the masked index route (kernels
 D/E), and with ``--mask_dtype int8|int4`` the integer-mask route (one-hot
 masks stored as int8 or packed int4, kernels H/I), both on the core
 ``--masked_core`` or the first candidate that fits; ``--impl block`` runs
-the block kernels F/G.  ``--mask_dtype auto`` keeps the direct kernels
-(the TPU's bf16/f32 einsum masks are not ported), and ``--impl banded``
-is not ported.
+the block kernels F/G; ``--impl banded`` runs the direct kernels B/C,
+which compute the exact (band=None) semantics the JAX package computes
+off the TPU.  ``--mask_dtype auto`` keeps the direct kernels (the TPU's
+bf16/f32 einsum masks are not ported).  ``--remat`` recomputes each
+graph layer in the backward pass (torch.utils.checkpoint).  The kNN
+search (``ModelConfig.knn_method``, no CLI flag, as in JAX) is the
+lattice search on full cubes, or the banded or exact pairwise search.
 """
 
 from __future__ import annotations
@@ -72,13 +74,12 @@ MODEL_TAGLIST = ["arae", "boot", "cari", "drac", "erid", "forn", "gemi",
                  "reti", "scut", "taur", "ursa", "virgo"]
 
 MODEL_FAMILIES = ("set", "shiftinv", "shiftinv15", "attn", "shiftinv_vel")
-# families the port runs; the others raise NotImplementedError
-PORTED_FAMILIES = ("set", "shiftinv", "attn", "shiftinv_vel")
 # families without a kNN graph: no neighbor op, no coverage guard
 GRAPHLESS_FAMILIES = ("set", "attn")
 DTYPES = ("float32", "bfloat16")
-NEIGHBOR_IMPLS = ("masked", "block")          # "banded" is not ported
+NEIGHBOR_IMPLS = ("masked", "block", "banded")
 MASK_DTYPES = ("auto", "index", "int8", "int4")
+KNN_METHODS = ("lattice", "banded", "exact")
 
 
 def default_data_dir() -> str:
@@ -119,10 +120,21 @@ class ModelConfig:
     # experiment.py:122-128), or per sample when False
     batch_coupled_gate: bool = True
     dtype: str = "float32"                    # compute dtype for activations
+    # neighbor-index band (ops/banded.py): "auto" derives it from the cube
+    # geometry (default_band); None disables it; an int sets it.  It
+    # bounds the banded kNN search and what the coverage guard checks
+    band: object = "auto"
+    # kNN search: "lattice" (kernel A's cell-list search on full cubes,
+    # the exact search otherwise), "banded" (exact within the index band),
+    # "exact" (O(N^2))
+    knn_method: str = "lattice"
     # lattice kNN search window in grid cells (ops/knn.py)
     knn_window: int = 3
+    # recompute each graph layer in the backward pass (memory for FLOPs)
+    remat: bool = False
     # neighbor route: "masked" = direct kernels B/C, or the index route
-    # with mask_dtype "index"; "block" = block kernels F/G
+    # with mask_dtype "index"; "block" = block kernels F/G; "banded" =
+    # direct kernels B/C
     neighbor_impl: str = "masked"
     # first-choice core of the index and integer-mask routes (None:
     # ops/blocked.MASKED_CORE)
@@ -189,7 +201,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="Number of samples in test set")
     adg("--model", type=str, default=None, choices=list(MODEL_FAMILIES),
         help="Model family; default: 'shiftinv_vel' with --velocity, else "
-             "'set' if -k == -1 else 'shiftinv' (shiftinv15 is not ported)")
+             "'set' if -k == -1 else 'shiftinv'")
     adg("--data_dir", type=str, default=None, help="Directory with ZA_*.npy cubes")
     adg("--synthetic", action="store_true",
         help="Force synthetic data even if real cubes exist")
@@ -217,18 +229,20 @@ def build_parser() -> argparse.ArgumentParser:
         help="Core block shape of the --mask_dtype index|int8|int4 routes "
              "(3 ints); default (4, 8, 8), stepping down to one that tiles "
              "the cube (and, for int8/int4, whose masks fit 8 GiB)")
-    adg("--impl", type=str, default="masked",
-        choices=["masked", "block", "banded"],
+    adg("--impl", type=str, default="masked", choices=list(NEIGHBOR_IMPLS),
         help="Neighbor gather/scatter: 'masked' runs the direct CUDA "
-             "kernels (or the index route with --mask_dtype index), "
-             "'block' the 3D-block kernels; 'banded' is not ported")
-    adg("--mask_dtype", type=str, default="auto",
-        choices=["auto", "int8", "int4", "index"],
+             "kernels (or the index / int8 / int4 routes with --mask_dtype), "
+             "'block' the 3D-block kernels, 'banded' the direct kernels "
+             "(exact, no band assumption)")
+    adg("--mask_dtype", type=str, default="auto", choices=list(MASK_DTYPES),
         help="'index': per-edge patch positions and the block-selection "
              "kernels; 'int8'/'int4': one-hot masks (int4 packed two per "
              "byte) and the mask-dot kernels (both bf16; float32 runs the "
              "direct kernels); 'auto': the direct kernels")
-    adg("--remat", action="store_true", help="(not ported)")
+    adg("--remat", action="store_true",
+        help="Recompute each graph layer in the backward pass "
+             "(torch.utils.checkpoint): less activation memory, one more "
+             "forward a step")
     adg("--knn_select", type=str, default="sort",
         choices=["sort", "iter", "pallas"],
         help="Lattice kNN k-selection.  The three JAX choices return the "
@@ -254,7 +268,6 @@ def build_parser() -> argparse.ArgumentParser:
 # flag -> default: a non-default value names a path the port does not run
 _UNPORTED_FLAGS = {
     "ensemble": 0, "data_axis": 1, "particle_axis": 1, "streaming": False,
-    "remat": False,
 }
 
 
@@ -267,10 +280,6 @@ def config_from_args(args: argparse.Namespace) -> Config:
     for flag, default in _UNPORTED_FLAGS.items():
         if getattr(args, flag) != default:
             raise _not_ported(flag, getattr(args, flag))
-    if args.impl not in NEIGHBOR_IMPLS:
-        raise _not_ported("impl", args.impl)
-    if args.mask_dtype not in MASK_DTYPES:
-        raise _not_ported("mask_dtype", args.mask_dtype)
     if args.masked_core is not None and args.mask_dtype == "auto":
         # on the direct route it would size the TPU einsum masks
         raise _not_ported("masked_core", args.masked_core)
@@ -305,6 +314,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         neighbor_impl=args.impl,
         masked_core=(tuple(args.masked_core) if args.masked_core else None),
         mask_dtype=args.mask_dtype,
+        remat=args.remat,
         dtype=args.dtype)
     train = TrainConfig(
         num_iters=args.num_iters,
@@ -320,21 +330,15 @@ def config_from_args(args: argparse.Namespace) -> Config:
 def check_family(family: str):
     if family not in MODEL_FAMILIES:
         raise ValueError(f"unknown model family: {family!r}")
-    if family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model family {family!r} is not ported to nbody_tpu_torch yet "
-            "(ROADMAP.md Queue 1)")
 
 
 def check_model_config(cfg: ModelConfig):
-    """Refuse what the port cannot run: unknown or unported families,
-    dtypes, neighbor routes and mask encodings."""
+    """Refuse unknown families, dtypes, neighbor routes, mask encodings
+    and kNN methods."""
     check_family(cfg.family)
-    if cfg.dtype not in DTYPES:
-        raise ValueError(f"dtype must be one of {DTYPES}, got {cfg.dtype!r}")
-    if cfg.neighbor_impl not in NEIGHBOR_IMPLS:
-        raise NotImplementedError(
-            f"neighbor_impl {cfg.neighbor_impl!r} is not ported (ROADMAP.md)")
-    if cfg.mask_dtype not in MASK_DTYPES:
-        raise NotImplementedError(
-            f"mask_dtype {cfg.mask_dtype!r} is not ported (ROADMAP.md)")
+    for name, allowed in (("dtype", DTYPES), ("neighbor_impl", NEIGHBOR_IMPLS),
+                          ("mask_dtype", MASK_DTYPES),
+                          ("knn_method", KNN_METHODS)):
+        if getattr(cfg, name) not in allowed:
+            raise ValueError(f"{name} must be one of {allowed}, got "
+                             f"{getattr(cfg, name)!r}")

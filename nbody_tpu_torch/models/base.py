@@ -14,11 +14,13 @@ its gate, residual and batch-norm parameters in ``AttnParams``.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Sequence
+from typing import Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from nbody_tpu_torch import config as C
@@ -61,6 +63,19 @@ def init_network_params(generator: torch.Generator, channels: Sequence[int],
             "W": glorot_normal(generator, (num_weights, k_in, k_out)),
             "B": torch.full((num_biases, k_out), C.BIAS_INIT)})
     return LayerParams(layers)
+
+
+def remat_layer(fn: Callable, remat: bool) -> Callable:
+    """A graph layer, or with `remat` the same layer recomputed in the
+    backward pass (the port of jax.checkpoint around each layer,
+    models/shiftinv.py:125, models/shiftinv15.py:576-577): torch.utils.
+    checkpoint without reentrancy, and without saving the RNG state -- the
+    forward draws no random numbers, and fit_scan's CUDA-graph capture
+    must not touch the generator."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False, preserve_rng_state=False)
 
 
 class ShiftInvVelParams(LayerParams):

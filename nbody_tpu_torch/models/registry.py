@@ -1,5 +1,5 @@
-"""Model registry (port of nbody_tpu/models/registry.py for the set,
-shiftinv, attn and shiftinv_vel families).
+"""Model registry (port of nbody_tpu/models/registry.py for every family:
+set, shiftinv, shiftinv15, attn and shiftinv_vel).
 
 A model takes the standard input batch x_in (b, N, 6) [grid - box/2,
 za_disp] -- (b, N, 9) with the velocities for shiftinv_vel -- and returns
@@ -8,19 +8,22 @@ the predicted ZA->FastPM residual (b, N, 3), or (b, N, 6), in f32.
 and ``eval_fn`` its eval-mode forward: attn's ``apply_eval`` (frozen
 batch-norm statistics), the same forward for the others; neither follows
 the module's train() / eval() flag.  The graph families rebuild the
-periodic lattice kNN graph inside every forward, from f32 positions,
-before anything is cast to the compute dtype.  Mixed precision is the
-JAX package's (registry.py:304-322): parameters, and so the Adam state,
-stay f32; the forward casts them and the input to the compute dtype and
-returns f32 predictions.
+periodic kNN graph inside every forward, from f32 positions, before
+anything is cast to the compute dtype (``_make_knn``: kernel A's lattice
+search on a full cells^3 cube with knn_method "lattice", else the banded
+or exact pairwise search).  Mixed precision is the JAX package's
+(registry.py:304-322): parameters, and so the Adam state, stay f32; the
+forward casts them and the input to the compute dtype and returns f32
+predictions.
 
 Each forward also picks its neighbor route (``_make_masks``) and records
 it in ``impl_record``: the masked index route (kernels D/E) for
 ``mask_dtype="index"`` and the integer-mask route (kernels H/I) for
 ``mask_dtype="int8"|"int4"``, both in bf16; the block route (kernels F/G)
-for ``neighbor_impl="block"``; else the direct kernels B/C.  The set
-and attn families use no neighbor op.  shiftinv15 raises
-NotImplementedError (ROADMAP.md).
+for ``neighbor_impl="block"``; the direct kernels B/C for
+``neighbor_impl="banded"`` (recorded as "banded") and otherwise.  Only
+the lattice search on a full cube takes the block and masked routes, as
+in JAX.  The set and attn families use no neighbor op.
 """
 
 from __future__ import annotations
@@ -32,8 +35,9 @@ import torch
 from torch import nn
 
 from nbody_tpu_torch import config as C
-from nbody_tpu_torch.models import attn, set_net, shiftinv
+from nbody_tpu_torch.models import attn, set_net, shiftinv, shiftinv15
 from nbody_tpu_torch.ops import blocked
+from nbody_tpu_torch.ops.banded import band_violations, default_band
 from nbody_tpu_torch.ops.knn import knn_periodic_batch, knn_periodic_lattice_batch
 
 # the exact O(N^2) coverage oracle runs on the device up to this size; above
@@ -43,6 +47,8 @@ EXACT_KNN_MAX_PARTICLES = 100_000
 # (registry.py:259); the first that tiles the cube (and, for int8/int4,
 # whose masks fit MASKED_BYTES_CAP) is taken
 MASKED_CORES = (blocked.MASKED_CORE, (4, 4, 8), (2, 4, 8), (2, 2, 4), (2, 2, 2))
+# the 15-op family puts the biggest core first (registry.py:260-264)
+MASKED_CORE_15 = (8, 8, 8)
 # the int8/int4 mask array's cap, estimated as JAX does at one byte per
 # (edge, patch site) for both encodings (jnp.int4's itemsize is 1), so that
 # the same core is chosen; the packed int4 array holds half of it
@@ -57,6 +63,49 @@ def _graph_geometry(x_in: torch.Tensor, box: float):
     return pos, za
 
 
+def _resolve_band(cfg: C.ModelConfig, box: float):
+    """cfg.band, with "auto" derived from the cube geometry
+    (registry.py:55-60)."""
+    if cfg.band == "auto":
+        return default_band(int(round(box / 4.0)), window=cfg.knn_window)
+    return cfg.band
+
+
+def _uses_lattice(cfg: C.ModelConfig, n: int, cells: int) -> bool:
+    """Whether the graph comes from the lattice search (kernel A)."""
+    return cfg.knn_method == "lattice" and n == cells ** 3
+
+
+def _effective_band(cfg: C.ModelConfig, band, n: int, cells: int):
+    """The band the search that produced idx guarantees
+    (registry.py:63-74): the lattice search on a full cube or an
+    explicitly banded search; None ("no band") for the exact search and
+    the lattice method's exact fallback on other point sets."""
+    if cfg.knn_method == "banded" or _uses_lattice(cfg, n, cells):
+        return band
+    return None
+
+
+def _make_knn(cfg: C.ModelConfig, box: float):
+    """The kNN search of a graph model (registry.py:77-122): unit-torus
+    positions (b, N, 3) -> idx (b, N, K) int32.  Kernel A's lattice search
+    on a full cells^3 cube with knn_method "lattice"; the banded search
+    with knn_method "banded"; else (knn_method "exact", or another point
+    set) the exact search, since the index band cannot be assumed."""
+    k, cells = cfg.k_neighbors, int(round(box / 4.0))
+    band = _resolve_band(cfg, box)
+
+    def knn(pos_norm: torch.Tensor) -> torch.Tensor:
+        if _uses_lattice(cfg, pos_norm.shape[-2], cells):
+            return knn_periodic_lattice_batch(pos_norm, k, cells=cells,
+                                              window=cfg.knn_window)
+        if cfg.knn_method == "banded":
+            return knn_periodic_batch(pos_norm, k, band=band)
+        return knn_periodic_batch(pos_norm, k)
+
+    return knn
+
+
 def _make_masks(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
                 dtype: torch.dtype, record: dict):
     """The neighbor route of one forward -> (masks, lattice), filling
@@ -68,15 +117,21 @@ def _make_masks(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
     built here once per forward) or int8 / packed int4 one-hot masks
     (block_masks), self slot dropped, with lattice =
     (cells, window, core, True) select the masked routes; (None, (cells,
-    window)) the block route; (None, None) the direct kernels B/C.  The
-    mask kernels select in bf16, so exact-f32 mode downgrades ``index``,
-    ``int8`` and ``int4`` to the direct route and records it.  int8/int4
-    take the first candidate core whose masks fit MASKED_BYTES_CAP and fall
-    back to the block route, with a warning, when none does."""
+    window)) the block route; (None, None) the direct kernels B/C, which
+    ``neighbor_impl="banded"`` and every graph not from the lattice
+    search take.  The mask kernels select in bf16, so exact-f32 mode
+    downgrades ``index``, ``int8`` and ``int4`` to the direct route and
+    records it.  The candidate cores follow --masked_core, with (8, 8, 8)
+    first for shiftinv15; int8/int4 take the first candidate core whose
+    masks fit MASKED_BYTES_CAP and fall back to the block route, with a
+    warning, when none does."""
     record.clear()
     record.update(impl="direct", core=None, mask_dtype=None, downgrade=None)
     b, k = idx.shape[0], idx.shape[-1]
-    if n != cells ** 3:
+    if cfg.neighbor_impl == "banded":
+        record.update(impl="banded")
+        return None, None
+    if not _uses_lattice(cfg, n, cells):
         return None, None
     if cfg.neighbor_impl == "block":
         record.update(impl="block", core=list(blocked.CORE))
@@ -88,7 +143,8 @@ def _make_masks(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
         record.update(downgrade=f"mask_dtype {req!r} in float32: the mask "
                                 "kernels select in bf16; direct kernels B/C")
         return None, None
-    candidates = ([tuple(cfg.masked_core)] if cfg.masked_core else []) + list(MASKED_CORES)
+    candidates = ([tuple(cfg.masked_core)] if cfg.masked_core else []) + (
+        [MASKED_CORE_15] if cfg.family == "shiftinv15" else []) + list(MASKED_CORES)
     for core in candidates:
         if any(cells % d for d in core):
             continue
@@ -204,32 +260,34 @@ class AttnModel(_Model):
 
 
 class ShiftInvModel(_Model):
-    """The shiftinv and shiftinv_vel families: lattice kNN + 4-op graph
+    """The shiftinv and shiftinv_vel families: kNN graph + 4-op graph
     network.  knn_fn, apply_with_idx and impl_record keep their JAX
     names.  The parameters live on `device`, the card unless named."""
 
     def __init__(self, cfg: C.ModelConfig, box: float, device=None):
         super().__init__(cfg, box)
         device = resolve_device(device)
-        self.velocity = cfg.family == "shiftinv_vel"
-        channels = (_channels(cfg, 9, C.GRAPH_VEL_CHANNELS) if self.velocity
-                    else _channels(cfg, 3, C.GRAPH_CHANNELS))
         self.cells = int(round(box / 4.0))
         self.k = cfg.k_neighbors
         self.window = cfg.knn_window
+        self.velocity = cfg.family == "shiftinv_vel"
+        self._knn = _make_knn(cfg, box)
         gen = torch.Generator().manual_seed(cfg.seed)
-        init = (shiftinv.init_shiftinv_vel_params if self.velocity
-                else shiftinv.init_shiftinv_params)
-        self.params = init(gen, channels).to(device)
+        self.params = self._init_params(gen).to(device)
+
+    def _init_params(self, gen: torch.Generator):
+        if self.velocity:
+            return shiftinv.init_shiftinv_vel_params(
+                gen, _channels(self.cfg, 9, C.GRAPH_VEL_CHANNELS))
+        return shiftinv.init_shiftinv_params(
+            gen, _channels(self.cfg, 3, C.GRAPH_CHANNELS))
 
     def knn_fn(self, x_in: torch.Tensor) -> torch.Tensor:
         """x_in (b, N, C) -> idx (b, N, K) int32, searched in f32 on the
         unit torus: pos_norm = mod(pos / box, 1) (registry.py:99-101)."""
         pos, _ = _graph_geometry(x_in, self.box)
         with torch.no_grad():
-            pos_norm = torch.remainder(pos / self.box, 1.0)
-            return knn_periodic_lattice_batch(pos_norm, self.k, cells=self.cells,
-                                              window=self.window)
+            return self._knn(torch.remainder(pos / self.box, 1.0))
 
     def apply_with_idx(self, x_in: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         """Forward given the graph; casts to the compute dtype AFTER the kNN
@@ -238,24 +296,43 @@ class ShiftInvModel(_Model):
         pos, za = _graph_geometry(x_in, self.box)
         masks, lattice = _make_masks(self.cfg, self.cells, x_in.shape[-2], idx,
                                      dt, self.impl_record)
+        return self._model(x_in, pos.to(dt), za.to(dt), idx, lattice,
+                           masks).to(torch.float32)
+
+    def _model(self, x_in, pos, za, idx, lattice, masks) -> torch.Tensor:
+        dt, remat = self.dtype, self.cfg.remat
         layers = self.params.layers(dt)
         if self.velocity:
-            out = shiftinv.shiftinv_vel_model(
-                {"layers": layers, "T": self.params.T.to(dt)}, pos.to(dt),
-                za.to(dt), x_in[..., 6:9].to(dt), idx, self.box,
-                lattice=lattice, masks=masks)
-        else:
-            out = shiftinv.shiftinv_model(layers, pos.to(dt), za.to(dt), idx,
-                                          self.box, lattice=lattice,
-                                          masks=masks)
-        return out.to(torch.float32)
+            return shiftinv.shiftinv_vel_model(
+                {"layers": layers, "T": self.params.T.to(dt)}, pos, za,
+                x_in[..., 6:9].to(dt), idx, self.box, lattice=lattice,
+                masks=masks, remat=remat)
+        return shiftinv.shiftinv_model(layers, pos, za, idx, self.box,
+                                       lattice=lattice, masks=masks,
+                                       remat=remat)
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
         return self.apply_with_idx(x_in, self.knn_fn(x_in))
 
 
+class ShiftInv15Model(ShiftInvModel):
+    """The shiftinv15 family: kNN graph, its block-structured symmetrized
+    graph and the 15-op network (models/shiftinv15.py), with the same
+    knn_fn, apply_with_idx and impl_record as ShiftInvModel."""
+
+    def _init_params(self, gen: torch.Generator):
+        return shiftinv15.init_shiftinv15_params(
+            gen, _channels(self.cfg, 3, C.GRAPH_CHANNELS))
+
+    def _model(self, x_in, pos, za, idx, lattice, masks) -> torch.Tensor:
+        return shiftinv15.shiftinv15_model(
+            self.params.layers(self.dtype), pos, za, idx, self.box,
+            remat=self.cfg.remat, lattice=lattice, masks=masks)
+
+
 MODEL_CLASSES = {"set": SetModel, "attn": AttnModel,
-                 "shiftinv": ShiftInvModel, "shiftinv_vel": ShiftInvModel}
+                 "shiftinv": ShiftInvModel, "shiftinv_vel": ShiftInvModel,
+                 "shiftinv15": ShiftInv15Model}
 
 
 def build_model(cfg: C.ModelConfig, box: float = C.BOX_SIZE,
@@ -294,11 +371,18 @@ def neighbor_sq_dist_sums(p: np.ndarray, idx: np.ndarray) -> np.ndarray:
 
 
 def coverage_violations(cfg: C.ModelConfig, box: float, x_in: torch.Tensor) -> int:
-    """Rows whose lattice-window neighbors are farther than their true kNN
-    (0 == the graph is provably covered), as registry.py:125-203 counts
-    them: the lattice search's per-row sum of squared neighbor distances
-    against an exact search's, in f64 on the host, with the same 1e-6 tie
-    tolerance.  The exact search is the O(N^2) device search up to
+    """Graph edges the configured neighbor pipeline could silently drop on
+    this batch (0 == the graph is provably covered), per knn_method as
+    registry.py:125-209 counts them:
+      lattice on a full cube -- rows whose lattice-window neighbors are
+        farther than their true kNN: the per-row sums of squared neighbor
+        distances against an exact search's, in f64 on the host, with the
+        same 1e-6 tie tolerance;
+      banded -- links of the exact search outside the band
+        (ops/banded.band_violations);
+      exact, and the lattice method's exact fallback on other point sets
+        -- 0 by construction.
+    The exact search is the O(N^2) device search up to
     EXACT_KNN_MAX_PARTICLES and the host k-d tree above.  0 for the
     families without a graph (set, attn).  Call once per run, not per
     step."""
@@ -308,17 +392,22 @@ def coverage_violations(cfg: C.ModelConfig, box: float, x_in: torch.Tensor) -> i
     cells = int(round(box / 4.0))
     pos, _ = _graph_geometry(x_in, box)
     n = pos.shape[-2]
-    if n != cells ** 3:
-        raise ValueError(f"coverage check needs a full cells^3 cube, N={n}")
     k = cfg.k_neighbors
     with torch.no_grad():
         pos_norm = torch.remainder(pos / box, 1.0)
-        idx_lat = knn_periodic_lattice_batch(pos_norm, k, cells=cells,
-                                             window=cfg.knn_window)
         p = pos_norm.cpu().numpy()
-        if n > EXACT_KNN_MAX_PARTICLES:
-            idx_ex = exact_knn_host(p, k)
-        else:
-            idx_ex = knn_periodic_batch(pos_norm, k).cpu().numpy()
-    lat = neighbor_sq_dist_sums(p, idx_lat.cpu().numpy())
-    return int(np.sum(lat > neighbor_sq_dist_sums(p, idx_ex) + 1e-6))
+
+        def exact_knn():
+            if n > EXACT_KNN_MAX_PARTICLES:
+                return exact_knn_host(p, k)
+            return knn_periodic_batch(pos_norm, k).cpu().numpy()
+
+        if _uses_lattice(cfg, n, cells):
+            idx_lat = knn_periodic_lattice_batch(pos_norm, k, cells=cells,
+                                                 window=cfg.knn_window)
+            lat = neighbor_sq_dist_sums(p, idx_lat.cpu().numpy())
+            return int(np.sum(lat > neighbor_sq_dist_sums(p, exact_knn()) + 1e-6))
+        band = _effective_band(cfg, _resolve_band(cfg, box), n, cells)
+        if band is None:
+            return 0
+        return int(band_violations(torch.as_tensor(exact_knn()), band))

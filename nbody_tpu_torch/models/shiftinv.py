@@ -18,7 +18,9 @@ On the masked routes (``masks`` = the BlockPlan of per-edge patch
 positions, or int8 / packed int4 one-hot masks) the network keeps edge activations BLOCK-MAJOR
 (b, NB, R, K, C) between layers, as _shiftinv_network_blocks does in JAX:
 edges enter and leave the cube layout once.  The velocity model (shiftinv_vel) adds node velocities
-to the edge features and two learnable output scalars.
+to the edge features and two learnable output scalars.  With ``remat``
+each layer is recomputed in the backward pass (base.remat_layer), in both
+network forms, as jax.checkpoint wraps each layer in JAX.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from nbody_tpu_torch import config as C
 from nbody_tpu_torch.models.base import (LayerParams, ShiftInvVelParams,
-                                         init_network_params)
+                                         init_network_params, remat_layer)
 from nbody_tpu_torch.ops import blocked
 from nbody_tpu_torch.ops.banded import (neighbor_counts, neighbor_gather,
                                         neighbor_segment_mean, route_plan)
@@ -94,7 +96,8 @@ def shift_inv_layer(h: torch.Tensor, idx: torch.Tensor,
 
 def shiftinv_network(params: List[Dict[str, torch.Tensor]], edges: torch.Tensor,
                      idx: torch.Tensor, activation: Callable = torch.relu,
-                     lattice=None, masks=None, plan=None) -> torch.Tensor:
+                     lattice=None, masks=None, plan=None,
+                     remat: bool = False) -> torch.Tensor:
     """Layer stack (reference network_func_shift_inv_za, graph.py:463-476).
     The step's plan (ops/banded.route_plan, built here when not given) serves
     every layer's scatters and, on the block route, gathers, forward and
@@ -104,11 +107,11 @@ def shiftinv_network(params: List[Dict[str, torch.Tensor]], edges: torch.Tensor,
     if plan is None:
         plan = route_plan(idx, lattice, masks)
     counts = neighbor_counts(idx, edges.dtype, lattice, masks, plan)
+    layer = remat_layer(shift_inv_layer, remat)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
-        h = shift_inv_layer(h, idx, layer_params, is_last=is_last,
-                            counts=counts, lattice=lattice, masks=masks,
-                            plan=plan)
+        h = layer(h, idx, layer_params, is_last=is_last, counts=counts,
+                  lattice=lattice, masks=masks, plan=plan)
         if not is_last:
             h = activation(h)
     return h
@@ -153,7 +156,8 @@ def _shift_inv_layer_blocks(hB: torch.Tensor, layer_params, masks, cells: int,
 
 
 def _shiftinv_network_blocks(params, edges: torch.Tensor, masks, lattice,
-                             activation: Callable) -> torch.Tensor:
+                             activation: Callable,
+                             remat: bool = False) -> torch.Tensor:
     """Masked-route network (shiftinv.py:184-212): edges enter and leave
     the cube layout exactly once."""
     cells, window = lattice[0], lattice[1]
@@ -162,40 +166,43 @@ def _shiftinv_network_blocks(params, edges: torch.Tensor, masks, lattice,
     hB = blocked.edges_cube_to_blocks(edges, cells, core=core)
     counts = blocked.masked_counts(masks, cells, window, core, self_free,
                                    edges.dtype)
+    layer = remat_layer(_shift_inv_layer_blocks, remat)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
-        hB = _shift_inv_layer_blocks(hB, layer_params, masks, cells, window,
-                                     counts, is_last, core, self_free)
+        hB = layer(hB, layer_params, masks, cells, window, counts, is_last,
+                   core, self_free)
         if not is_last:
             hB = activation(hB)
     return blocked.nodes_blocks_to_cube(hB, cells, core=core)   # (b, N, q)
 
 
-def _network(params, edges, idx, activation, lattice, masks, plan):
+def _network(params, edges, idx, activation, lattice, masks, plan, remat):
     if masks is not None and lattice is not None:
         return _shiftinv_network_blocks(params, edges, masks, lattice,
-                                        activation)
+                                        activation, remat)
     return shiftinv_network(params, edges, idx, activation, lattice, masks,
-                            plan)
+                            plan, remat)
 
 
 def shiftinv_model(params: List[Dict[str, torch.Tensor]], pos: torch.Tensor,
                    za_disp: torch.Tensor, idx: torch.Tensor, box: float,
                    activation: Callable = torch.relu,
-                   lattice=None, masks=None) -> torch.Tensor:
+                   lattice=None, masks=None, remat: bool = False) -> torch.Tensor:
     """Featurize + network (reference model_func_shift_inv_za).  pos
     (b, N, 3) raw positions (grid + ZA), za_disp (b, N, 3), idx (b, N, K)
     with self at slot 0 -> (b, N, q).  The step's plan is built once and
     serves the features' gather and the network."""
     plan = route_plan(idx, lattice, masks)
     edges = edge_features_za(pos, idx, za_disp, box, lattice, masks, plan)
-    return _network(params, edges, idx, activation, lattice, masks, plan)
+    return _network(params, edges, idx, activation, lattice, masks, plan,
+                    remat)
 
 
 def shiftinv_vel_model(params, pos: torch.Tensor, za_disp: torch.Tensor,
                        vel: torch.Tensor, idx: torch.Tensor, box: float,
                        activation: Callable = torch.relu,
-                       lattice=None, masks=None) -> torch.Tensor:
+                       lattice=None, masks=None,
+                       remat: bool = False) -> torch.Tensor:
     """Velocity-aware model (shiftinv.py:247-274).  params {"layers": [...],
     "T": (2,)}.  Edge features [rel pos with ZA on the self-edge (3), vel
     at row (3), vel at col (3)]; output (b, N, 6): displacement and
@@ -204,7 +211,7 @@ def shiftinv_vel_model(params, pos: torch.Tensor, za_disp: torch.Tensor,
     edges = edge_features_with_nodes(pos, idx, vel, box, za_disp=za_disp,
                                      lattice=lattice, masks=masks, plan=plan)
     net = _network(params["layers"], edges, idx, activation, lattice, masks,
-                   plan)
+                   plan, remat)
     t = params["T"]
     scale = torch.cat([t[0].expand(3), t[1].expand(net.shape[-1] - 3)])
     return net * scale

@@ -22,6 +22,10 @@ On the direct and block routes each op's gradient is the other op, as in
 the JAX custom VJPs (ops/banded.py:221-254).  The block route runs F/G
 with ``fast`` = (values are bf16): exact in either dtype, the JAX CPU
 semantics (on the TPU it rounded f32 values to bf16).
+
+``default_band`` and ``band_violations`` are the index-band arithmetic of
+ops/banded.py:37-46 and :154-161: the band the banded kNN search and the
+coverage guard assume, and the count of links outside it.
 """
 
 from __future__ import annotations
@@ -34,6 +38,24 @@ from nbody_tpu_torch.ops import blocked
 from nbody_tpu_torch.ops.kernels import banded_kernels as K
 from nbody_tpu_torch.ops.kernels.banded_kernels import GraphPlan, graph_plan
 from nbody_tpu_torch.ops.kernels.block_kernels import BlockPlan
+
+
+def default_band(cells: int, window: int = 3) -> int:
+    """Index band covering every flat offset a +-window lattice-kNN
+    neighbor can have: |rel| <= window*c^2 + (c-1)*c + (c-1) < (window+1)*c^2
+    (a wrapped y or z coordinate does not fold in flat index space), so
+    band = 2*(window+1)*c^2, rounded up to 256 and capped at N."""
+    n = cells ** 3
+    return min(n, -(-2 * (window + 1) * cells * cells // 256) * 256)
+
+
+def band_violations(idx: torch.Tensor, band: int) -> torch.Tensor:
+    """Neighbor links outside the circular band (0 for a correct band):
+    idx (..., N, K); rel in [-band//2, band//2] is in band."""
+    n = idx.shape[-2]
+    rows = torch.arange(n, dtype=idx.dtype, device=idx.device)[:, None]
+    rel = torch.remainder(idx - rows + n // 2, n) - n // 2
+    return torch.sum((rel < -(band // 2)) | (rel > band // 2))
 
 
 def _block_ok(n: int, lattice) -> bool:

@@ -54,12 +54,13 @@ def neighbor_positions(pos: torch.Tensor, idx: torch.Tensor, box: float,
     them to ~0.25 units.  As in graph_features.py:45-67, the gathered
     quantity is the min-image DISPLACEMENT from each particle's origin
     site (about a grid spacing), and the neighbor position is rebuilt as
-    site(idx) + displacement with exact elementwise arithmetic.  The cube
-    must be full (cells^3 particles in grid order)."""
+    site(idx) + displacement with exact elementwise arithmetic.  A point
+    set that is not a full cells^3 cube in grid order gathers the
+    positions themselves, exactly (graph_features.py:59-62): kernel B
+    copies rows in the input dtype."""
     cells = _cube_cells(pos.shape[-2])
     if not cells:
-        raise ValueError(f"neighbor_positions needs a full cells^3 cube, "
-                         f"N={pos.shape[-2]}")
+        return neighbor_gather(pos, idx, lattice, None, plan)
     nbr_disp = neighbor_gather(_origin_displacement(pos, cells, box), idx,
                                lattice, masks, plan)
     return lattice_site_positions(idx, cells, box, pos.dtype) + nbr_disp

@@ -21,7 +21,11 @@ check runs on the first batch of every ``fit`` / ``fit_scan``, and the
 O(N) margin monitor at every checkpoint (every chunk of ``fit_scan``)
 triggers one exact check per episode of margin violations; both run
 outside the graph, and neither runs for the families without a kNN
-graph (set, attn; trainer.py:279-280).  Evaluation runs the model's
+graph (set, attn).  The monitor watches the lattice window, so it runs
+only where the graph comes from the lattice search: knn_method "lattice"
+on a full cells^3 cube (trainer.py:279-282).  A step with ``remat``
+recomputes each layer in the backward pass, and fit_scan captures it
+like any other step.  Evaluation runs the model's
 ``eval_fn`` (attn: frozen batch-norm statistics).  After the first step
 the model's effective neighbor route (``impl_record``: direct, block, or
 masked with its core and mask dtype, index, int8 or int4) is printed and
@@ -220,6 +224,9 @@ class Trainer:
         self.metrics_log: list[dict] = []
         self.train_error_history: list[float] = []
         self._graph = cfg.model.family not in C.GRAPHLESS_FAMILIES
+        cells = self.dataset.cells
+        self._monitored = (self._graph and cfg.model.knn_method == "lattice"
+                           and self.dataset.num_particles == cells ** 3)
         self._cov_confirmed = False
         self._x_dev: Optional[torch.Tensor] = None
 
@@ -261,9 +268,10 @@ class Trainer:
         a nonzero count is printed and logged."""
         v = coverage_violations(self.cfg.model, self.box, x_in)
         if v:
-            print(f"graph coverage violated: {v} rows have neighbors outside "
-                  f"the lattice window (knn_window={self.cfg.model.knn_window})",
-                  flush=True)
+            m = self.cfg.model
+            print(f"graph coverage violated: {v} rows or edges fall outside "
+                  f"what knn_method={m.knn_method!r} (knn_window="
+                  f"{m.knn_window}, band={m.band!r}) can represent", flush=True)
             self._log({"graph_coverage_violations": int(v)})
         return v
 
@@ -272,9 +280,12 @@ class Trainer:
             return
         v = self.check_graph_coverage(x_in)
         if v:
+            m = self.cfg.model
             raise CoverageError(
-                f"{v} rows fall outside what knn_window="
-                f"{self.cfg.model.knn_window} can represent; increase it")
+                f"{v} rows or edges fall outside what knn_method="
+                f"{m.knn_method!r} (knn_window={m.knn_window}, band={m.band!r}) "
+                "can represent; increase the window or the band, or use "
+                "knn_method='exact'")
 
     def _log_effective_impl(self, verbose: bool):
         """Record the neighbor route the model's forward took."""
@@ -286,7 +297,7 @@ class Trainer:
     def _monitor_coverage(self, x_in: torch.Tensor, rec: dict):
         """O(N) margin monitor folded into a checkpoint record; a nonzero
         margin count triggers one exact check per violation episode."""
-        if not self._graph:
+        if not self._monitored:
             return
         pos = x_in[..., :3] + self.box / 2.0 + x_in[..., 3:6]
         cv = int(lattice_violations(pos, self.dataset.cells, box=self.box,

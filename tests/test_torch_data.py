@@ -144,17 +144,35 @@ def test_parser_reference_flags():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--impl", "banded"], ["--ensemble", "2"],
+    ["--impl", "banded", "--data_axis", "2"], ["--ensemble", "2"],
     ["--data_axis", "2"], ["--particle_axis", "2"], ["--streaming"],
     # the run flags are ported; beside a refused flag they still raise
     ["--scan", "5", "--ensemble", "2"], ["--device_data", "on", "--data_axis", "2"],
     ["-r", "--streaming"], ["--trace", "t", "--particle_axis", "2"],
-    ["--masked_core", "4", "4", "4"], ["--remat"],
-    ["--model", "shiftinv15"], ["--velocity", "--remat"]])
+    ["--masked_core", "4", "4", "4"], ["--remat", "--streaming"],
+    ["--model", "shiftinv15", "--ensemble", "2"],
+    ["--remat", "--particle_axis", "2"]])
 def test_unported_flags_raise(flags):
     args = C.build_parser().parse_args(flags)
     with pytest.raises(NotImplementedError):
         C.config_from_args(args)
+
+
+@pytest.mark.parametrize("flags,field,value", [
+    (["--impl", "banded"], "neighbor_impl", "banded"),
+    (["--remat"], "remat", True),
+    (["--model", "shiftinv15"], "family", "shiftinv15"),
+    (["--velocity", "--remat"], "remat", True)])
+def test_ported_graph_flags_configure_and_build(flags, field, value):
+    """--impl banded, --remat and --model shiftinv15 configure with the JAX
+    CLI's meaning, and the model builds (on the CPU)."""
+    from nbody_tpu_torch.models.registry import build_model
+    cfg = C.config_from_args(C.build_parser().parse_args(flags))
+    assert getattr(cfg.model, field) == value
+    jcfg = JC.config_from_args(JC.build_parser().parse_args(flags))
+    assert getattr(jcfg.model, field) == value
+    model = build_model(cfg.model, device="cpu")
+    assert model.cfg == cfg.model
 
 
 @pytest.mark.parametrize("flags,family", [

@@ -152,10 +152,17 @@ def test_init_matches_reference_distributions():
 
 
 def test_build_model_refuses_unported_families():
-    with pytest.raises(NotImplementedError):
-        build_model(C.ModelConfig(family="shiftinv15"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        build_model(C.ModelConfig(neighbor_impl="banded"), device="cpu")
+    """Every family and neighbor route of the JAX package is ported now:
+    shiftinv15 and neighbor_impl="banded" build
+    (tests/test_torch_shiftinv15.py, tests/test_torch_knn_methods.py);
+    unknown families, dtypes and kNN methods are still refused."""
+    model = build_model(C.ModelConfig(family="shiftinv15"), device="cpu")
+    assert model.cfg.family == "shiftinv15" and len(model.params) == 6
+    assert tuple(model.params.W[0].shape) == (15, 3, 32)
+    assert build_model(C.ModelConfig(neighbor_impl="banded"),
+                       device="cpu").cfg.neighbor_impl == "banded"
+    with pytest.raises(ValueError):
+        build_model(C.ModelConfig(knn_method="kd_tree"), device="cpu")
     # the int8 mask route is ported (tests/test_torch_mask_route.py)
     assert build_model(C.ModelConfig(mask_dtype="int8"),
                        device="cpu").cfg.mask_dtype == "int8"

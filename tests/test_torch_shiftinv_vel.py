@@ -321,11 +321,16 @@ def test_config_velocity_and_route_flags():
     for flags in (["--velocity", "--model", "shiftinv"], ["--model", "shiftinv_vel"]):
         with pytest.raises(ValueError):
             C.config_from_args(C.build_parser().parse_args(flags))
-    # int4 masks are ported (tests/test_torch_mask_route.py); banded is not
+    # int4 masks and --impl banded are ported (tests/test_torch_mask_route.py,
+    # tests/test_torch_knn_methods.py); the parallel flags are not
     assert build_model(C.ModelConfig(mask_dtype="int4"),
                        device="cpu").cfg.mask_dtype == "int4"
+    cfg = C.config_from_args(C.build_parser().parse_args(
+        ["--velocity", "--impl", "banded"]))
+    assert (cfg.model.family, cfg.model.neighbor_impl) == ("shiftinv_vel", "banded")
     with pytest.raises(NotImplementedError):
-        C.config_from_args(C.build_parser().parse_args(["--impl", "banded"]))
+        C.config_from_args(C.build_parser().parse_args(
+            ["--velocity", "--impl", "banded", "--data_axis", "2"]))
 
 
 def test_cli_velocity_index_cpu(capsys, tmp_path, monkeypatch):

@@ -56,7 +56,8 @@ SLICE_MODULES = [
     "nbody_tpu_torch.io_.checkpoint", "nbody_tpu_torch.physics.baseline",
     "nbody_tpu_torch.cli.eval", "nbody_tpu_torch.models.set_net",
     "nbody_tpu_torch.models.attn", "nbody_tpu_torch.train.rollout",
-    "nbody_tpu_torch.cli.rollout", "nbody_tpu_torch.cli.experiment"]
+    "nbody_tpu_torch.cli.rollout", "nbody_tpu_torch.cli.experiment",
+    "nbody_tpu_torch.models.shiftinv15"]
 
 
 def test_adam_steps_track_optax():
