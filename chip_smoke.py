@@ -83,8 +83,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      step): (a) 10 steps of eager fit and of fit_scan (T 5) from two fresh
      trainers and one minibatch generator, f32 (losses rtol 1e-5, params
      rtol 1e-5 / atol 1e-6) and bf16 (losses rtol 1e-3), printing whether
-     they are bit-equal; (b) the launches counted during the capture equal
-     the eager step's and STEP_LAUNCHES, replays launch no wrapper, and
+     they are bit-equal; (b) the launches the capture records equal the
+     eager step's and STEP_LAUNCHES, a replay adds exactly its capture's
+     launches (20 replays, 20 times; the capture itself counts none), and
      torch.profiler sees kernels A, B and C once a step in a replayed
      chunk; (c) ms a step by CUDA events, host ms a step and peak memory,
      eager and graph, over 20 steps after warm-up, with the device busy
@@ -142,12 +143,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
      step captured by fit_scan; (g) the exact and banded kNN at 32^3 b1
      equal the CPU's, and a non-cube forward (32^3 - 1 points, the exact
      search) against the CPU's: ids equal, loss and forward (relative L2)
-     within rtol 1e-4.
+     within rtol 1e-4;
+ 18. the program's tracing (nbody_tpu_torch/tracing.py) on the main path,
+     32^3 b4 bf16: an eager step and a rollout hop with no profiler create
+     no CUDA event; the capture makes one external timing event a mark of
+     the step's timeline; a chunk of 10 replays moves graph.replays by 10,
+     graph.captures by 0, every launch counter by 10 times the capture's
+     (STEP_LAUNCHES) and loss.particles by 10 b N; the replayed timeline
+     sums to within 5 % of a profiled replay's extent on the card; a
+     profiled fit_scan takes one sample a chunk and shows the program's
+     spans.
 The line before the last is {"kernels": [...]}, all eleven kernels with
 their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
 tensor cores); the last line is {"ok": true, "device": {...}}.
 """
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -953,17 +964,28 @@ def pos_norm(x_in, box):
     return torch.remainder((x_in[..., :3] + box / 2.0 + x_in[..., 3:6]) / box, 1.0)
 
 
-def reset_counts(*modules):
-    for m in modules:
-        m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
+def reset_counts():
+    """Zero the program's counters (nbody_tpu_torch/tracing.py)."""
+    from nbody_tpu_torch import tracing
+    tracing.reset()
 
 
-def one_step_launches(trainer, x, y, counted, want, label):
+def launches() -> collections.Counter:
+    """{wrapper: launches} since the last reset_counts(), from the
+    program's launch.<wrapper> counters (a replay of fit_scan's CUDA graph
+    adds the launches its capture recorded); absent wrappers read 0."""
+    from nbody_tpu_torch import tracing
+    return collections.Counter({k[len("launch."):]: v
+                                for k, v in tracing.counters().items()
+                                if k.startswith("launch.") and v})
+
+
+def one_step_launches(trainer, x, y, want, label):
     """Every kernel launch of one train step must be `want`, exactly."""
-    reset_counts(*counted)
+    reset_counts()
     trainer.train_step(x, y)
     torch.cuda.synchronize()
-    step = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    step = launches()
     print(f"launches in one {label} train step: {step}")
     check(step == want, f"one {label} train step launched {step}, expected {want}")
 
@@ -1003,7 +1025,7 @@ def make_vel64(dev, C):
     return ds, Trainer(cfg, dev, dataset=ds)
 
 
-def run_vel64(dev, ds, trainer, counted):
+def run_vel64(dev, ds, trainer):
     """Phase 7: the 64^3 shiftinv_vel index path through Trainer.fit and
     evaluate.  Returns the launch counts of the fit + evaluate."""
     from nbody_tpu_torch.data.dataset import split_batch
@@ -1018,13 +1040,13 @@ def run_vel64(dev, ds, trainer, counted):
     print(f"coverage guard, host k-d tree search: {cov} violations "
           f"({time.perf_counter() - t0:.1f} s)")
     check(cov == 0, "the lattice window does not cover the 64^3 data")
-    reset_counts(*counted)
+    reset_counts()
     t0 = time.perf_counter()
     trainer.fit(verbose=True)
     fit_s = time.perf_counter() - t0
     errors, preds = trainer.evaluate("test", verbose=True)
     torch.cuda.synchronize()
-    counts = {k: v for m in counted for k, v in m.LAUNCHES.items()}
+    counts = launches()
     print(f"launches during the 64^3 fit + evaluate: {counts}")
     losses = [r["loss"] for r in trainer.metrics_log if "step" in r]
     print(f"64^3 fit: 4 steps in {fit_s:.2f} s (host clock, coverage check "
@@ -1046,7 +1068,7 @@ def run_vel64(dev, ds, trainer, counted):
     print(f"64^3 evaluate: cube {preds.shape}, errors {errors.tolist()}")
 
     x, y = split_batch(torch.as_tensor(ds.X_train[:1], device=dev), 9)
-    one_step_launches(trainer, x, y, counted, INDEX_STEP_LAUNCHES, "64^3 index")
+    one_step_launches(trainer, x, y, INDEX_STEP_LAUNCHES, "64^3 index")
     step_time(trainer, x, y, 5, "64^3 b1 K14 w2 bf16 shiftinv_vel, index core "
                                 "(4, 8, 8)")
     cfg = trainer.cfg
@@ -1060,7 +1082,7 @@ def run_vel64(dev, ds, trainer, counted):
     return counts
 
 
-def run_block32(dev, C, dataset, counted):
+def run_block32(dev, C, dataset):
     """Phase 8: the --impl block route at 32^3 b4 through Trainer.fit."""
     from nbody_tpu_torch.data.dataset import split_batch
     from nbody_tpu_torch.train.trainer import Trainer
@@ -1071,10 +1093,10 @@ def run_block32(dev, C, dataset, counted):
         C.TrainConfig(num_iters=3, batch_size=BATCH, learn_rate=1e-3,
                       checkpoint_every=1))
     trainer = Trainer(cfg, dev, dataset=dataset)
-    reset_counts(*counted)
+    reset_counts()
     trainer.fit(verbose=True)
     torch.cuda.synchronize()
-    counts = {k: v for m in counted for k, v in m.LAUNCHES.items()}
+    counts = launches()
     print(f"launches during the --impl block fit: {counts}")
     losses = [r["loss"] for r in trainer.metrics_log if "step" in r]
     check(len(losses) == 3 and np.isfinite(losses).all(), "non-finite block loss")
@@ -1083,12 +1105,12 @@ def run_block32(dev, C, dataset, counted):
     check(counts["block_gather"] > 0 and counts["block_scatter"] > 0,
           "kernels F/G did not run on the --impl block path")
     x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
-    one_step_launches(trainer, x, y, counted, BLOCK_STEP_LAUNCHES, "--impl block")
+    one_step_launches(trainer, x, y, BLOCK_STEP_LAUNCHES, "--impl block")
     step_time(trainer, x, y, 5, "32^3 b4 K14 w2 bf16 shiftinv, --impl block")
     return counts
 
 
-def run_int_route(dev, C, dataset, counted):
+def run_int_route(dev, C, dataset):
     """Phase 11: the --mask_dtype int8 route at 32^3 b4 through the coverage
     guard, Trainer.fit and evaluate, then int4 through fit.  Returns the
     launch counts of the int8 fit + evaluate."""
@@ -1108,7 +1130,7 @@ def run_int_route(dev, C, dataset, counted):
             cov = trainer.check_graph_coverage(x)
             print(f"coverage guard (int8 route): {cov} violations")
             check(cov == 0, "the lattice window does not cover the data")
-        reset_counts(*counted)
+        reset_counts()
         trainer.fit(verbose=True)
         if mdt == "int8":
             errors, preds = trainer.evaluate("test", verbose=True)
@@ -1117,7 +1139,7 @@ def run_int_route(dev, C, dataset, counted):
                   f"int8 evaluate cube {preds.shape} not finite / wrong shape")
             print(f"int8 evaluate: cube {preds.shape}, errors {errors.tolist()}")
         torch.cuda.synchronize()
-        counts = {k: v for m in counted for k, v in m.LAUNCHES.items()}
+        counts = launches()
         print(f"launches during the --mask_dtype {mdt} fit"
               + (" + evaluate" if mdt == "int8" else "") + f": {counts}")
         losses = [r["loss"] for r in trainer.metrics_log if "step" in r]
@@ -1136,7 +1158,7 @@ def run_int_route(dev, C, dataset, counted):
         step_time(trainer, x, y, 5, f"32^3 b4 K14 w2 bf16 shiftinv, --mask_dtype "
                                     f"{mdt} core {MASK_CORE}")
         if mdt == "int8":
-            one_step_launches(trainer, x, y, counted, INT8_STEP_LAUNCHES, "int8")
+            one_step_launches(trainer, x, y, INT8_STEP_LAUNCHES, "int8")
         counts8 = counts8 or counts
         del trainer
     return counts8
@@ -1251,11 +1273,12 @@ def minibatches(ds, dev, n, batch):
     return torch.as_tensor(ds.X_train[idxs], device=dev)
 
 
-def eager_vs_graph(dev, dataset, cfg, counted, want, label):
+def eager_vs_graph(dev, dataset, cfg, want, label):
     """Phases 14 and 17: 3 eager steps against 3 steps of fit_scan's graph
     (the first eager on a side stream, the capture at the second) on the
-    same batches: loss rtol 1e-3, and the launches of the eager step and
-    the capture twice `want`.  Returns the route's impl_record."""
+    same batches: loss rtol 1e-3, and the launches of the three steps
+    (the eager step's, and the capture's added at each of its two
+    replays) three times `want`.  Returns the route's impl_record."""
     from nbody_tpu_torch.data.dataset import split_batch
     from nbody_tpu_torch.train.trainer import Trainer
 
@@ -1267,22 +1290,22 @@ def eager_vs_graph(dev, dataset, cfg, counted, want, label):
     rec = dict(eager.model.impl_record)
     del eager
     graph = Trainer(cfg, dev, dataset=dataset)
-    reset_counts(*counted)
+    reset_counts()
     lg = graph.train_scan.run(b, ni).tolist()
     torch.cuda.synchronize()
-    counts = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    counts = launches()
     rel = max(abs(a - c) / abs(a) for a, c in zip(le, lg))
     print(f"{label} {rec}: eager {le} vs graph {lg} (steps 2-3 replayed), max "
           f"rel {rel:.2e}, bit-equal {le == lg}; launches (eager step + "
-          f"capture) {counts}")
+          f"2 replays) {dict(counts)}")
     check(all(np.isfinite(le)) and rel <= 1e-3, f"{label}: graph losses off eager's")
-    check(counts == {n: 2 * v for n, v in want.items()},
-          f"{label}: launched {counts}, expected twice {want}")
+    check(counts == {n: 3 * v for n, v in want.items()},
+          f"{label}: launched {counts}, expected three times {want}")
     del graph
     return rec
 
 
-def run_scan(dev, C, dataset, ds64, counted):
+def run_scan(dev, C, dataset, ds64):
     """Phase 14: the run around the step -- Trainer.fit_scan, one CUDA
     graph of the train step replayed once a step, against eager fit; its
     launches, step times and memory; every other route's graph; the CLI's
@@ -1308,9 +1331,9 @@ def run_scan(dev, C, dataset, ds64, counted):
     def flat(trainer):
         return torch.cat([p.detach().ravel() for p in trainer.model.parameters()])
 
-    def launches():
+    def synced_launches():
         torch.cuda.synchronize()
-        return {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+        return launches()
 
     # (a) graph against eager: 10 steps from two fresh trainers and one
     # minibatch generator, the losses at steps 5 and 10 and the params
@@ -1336,28 +1359,30 @@ def run_scan(dev, C, dataset, ds64, counted):
         del eager, graph
 
     # (b) launches: a fresh trainer's first scanned step runs eagerly, the
-    # capture follows at the next; replays launch no wrapper
+    # capture follows at the next; the capture counts nothing itself and a
+    # replay adds exactly its capture's launches
     cfg = cfg_of(dataset)
     batches = minibatches(dataset, dev, 20, BATCH)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     graph = Trainer(cfg, dev, dataset=dataset)
-    reset_counts(*counted)
+    reset_counts()
     graph.train_scan.run(batches[:1], 6)
-    warm = launches()
-    reset_counts(*counted)
+    warm = synced_launches()
+    reset_counts()
     graph.train_scan.run(batches[1:2], 6)
-    captured = launches()
-    reset_counts(*counted)
+    captured = synced_launches()
+    reset_counts()
     graph.train_scan.run(batches, 6)
-    replayed = launches()
-    print(f"launches: eager first step {warm}; the next step, captured and "
-          f"replayed, {captured}; 20 replayed steps {replayed}")
+    replayed = synced_launches()
+    print(f"launches: eager first step {dict(warm)}; the next step, captured "
+          f"and replayed, {dict(captured)}; 20 replayed steps {dict(replayed)}")
     check(all(captured.get(n, 0) == want for n, want in STEP_LAUNCHES.items())
           and captured == warm, f"the capture launched {captured}, expected "
                                 f"{STEP_LAUNCHES} and the eager step's {warm}")
-    check(not replayed, f"replays launched through the wrappers: {replayed}")
+    check(replayed == {n: 20 * v for n, v in captured.items()},
+          f"20 replays added {replayed}, not 20 times the capture's {captured}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         graph.train_scan.run(batches[:5], 6)
         torch.cuda.synchronize()
@@ -1389,7 +1414,7 @@ def run_scan(dev, C, dataset, ds64, counted):
         ("int8", dataset, cfg_of(dataset, mask_dtype="int8"), INT8_STEP_LAUNCHES),
         ("int4", dataset, cfg_of(dataset, mask_dtype="int4"), INT8_STEP_LAUNCHES))
     for name, ds, cfg, want in routes:
-        eager_vs_graph(dev, ds, cfg, counted, want, f"{name} route")
+        eager_vs_graph(dev, ds, cfg, want, f"{name} route")
         summary[f"route_{name}"] = "captured"
 
     # (e) the CLI in-process: train with --scan and device data, eval, -r,
@@ -1436,7 +1461,7 @@ def run_scan(dev, C, dataset, ds64, counted):
     print(f"run around the step (phase 14): {json.dumps(summary)}")
 
 
-def run_set_attn(dev, C, dataset, counted):
+def run_set_attn(dev, C, dataset):
     """Phase 15: the set and attn families -- card against CPU in f32,
     200 bf16 fit steps of set, fit_scan's graph against the eager step,
     cli.experiment, and the step times of both families."""
@@ -1505,14 +1530,14 @@ def run_set_attn(dev, C, dataset, counted):
         C.TrainConfig(num_iters=200, batch_size=SET_BATCH, learn_rate=3e-3,
                       checkpoint_every=1))
     trainer = Trainer(cfg, dev, dataset=ds16)
-    reset_counts(*counted)
+    reset_counts()
     trainer.fit(verbose=False)
     losses = trainer.train_error_history
     fall = losses[0] / float(np.mean(losses[-10:]))
     print(f"set 16^3 b4 bf16, 200 fit steps at lr 3e-3: loss {losses[0]:.5f} "
           f"-> {float(np.mean(losses[-10:])):.5f} (mean of the last 10), "
           f"fell {fall:.2f}x; launches through the wrappers "
-          f"{ {k: v for m in counted for k, v in m.LAUNCHES.items() if v} }")
+          f"{dict(launches())}")
     check(len(losses) == 200 and np.isfinite(losses).all() and fall > 2.0,
           "set did not train: the loss fell by 2x or less")
     summary["set_fit_fall"] = fall
@@ -1527,7 +1552,7 @@ def run_set_attn(dev, C, dataset, counted):
                        C.TrainConfig(num_iters=3, batch_size=batch,
                                      learn_rate=1e-3))
         # no wrapper launches: set and attn run no kernel of the repo
-        eager_vs_graph(dev, ds, cfg, counted, {}, f"{family} bf16 ({label})")
+        eager_vs_graph(dev, ds, cfg, {}, f"{family} bf16 ({label})")
         summary[family] = step_forms(
             dev, lambda: Trainer(cfg, dev, dataset=ds),
             minibatches(ds, dev, 20, batch), 6, f"{family} {label} bf16")
@@ -1549,7 +1574,7 @@ def run_set_attn(dev, C, dataset, counted):
     print(f"set and attn (phase 15): {json.dumps(summary)}")
 
 
-def run_rollout(dev, C, counted):
+def run_rollout(dev, C):
     """Phase 16: the redshift-chain rollout at full width -- cli.rollout
     end to end (window 3, and window 2 where every pair's guard passes),
     the launches of one make_rollout call, card against CPU in f32, and ms
@@ -1603,10 +1628,10 @@ def run_rollout(dev, C, counted):
         return rollout(stacked, x_dev)
 
     call()
-    reset_counts(*counted)
+    reset_counts()
     call()
     torch.cuda.synchronize()
-    counts = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    counts = launches()
     want = {n: v * CHAIN_STEPS for n, v in ROLLOUT_HOP_LAUNCHES.items()}
     print(f"launches of one {CHAIN_STEPS}-hop rollout call: {counts}")
     check(counts == want, f"the rollout launched {counts}, expected {want}")
@@ -1866,7 +1891,7 @@ def profile_step(cfg, dev, dataset, x, y, label, out):
     del trainer
 
 
-def run_shiftinv15(dev, C, dataset, idx0, counted):
+def run_shiftinv15(dev, C, dataset, idx0):
     """Phase 17 (a-e): the 15-op family at full width on every route, its
     parity checks, and the CLI."""
     from nbody_tpu_torch.cli import eval as cli_eval
@@ -1890,13 +1915,13 @@ def run_shiftinv15(dev, C, dataset, idx0, counted):
     cov = trainer.check_graph_coverage(x)
     print(f"15-op coverage guard: {cov} violations")
     check(cov == 0, "the lattice window does not cover the data")
-    reset_counts(*counted)
+    reset_counts()
     t0 = time.perf_counter()
     trainer.fit(verbose=True)
     fit_s = time.perf_counter() - t0
     errors, preds = trainer.evaluate("test", verbose=True)
     torch.cuda.synchronize()
-    counts = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    counts = launches()
     losses = [r["loss"] for r in trainer.metrics_log if "step" in r]
     print(f"15-op fit: 5 steps in {fit_s:.2f} s (host clock); losses {losses}; "
           f"launches during fit + evaluate {counts}")
@@ -1908,7 +1933,7 @@ def run_shiftinv15(dev, C, dataset, idx0, counted):
     check(trainer.model.impl_record.get("impl") == "direct",
           f"15-op route is {trainer.model.impl_record}")
     print(f"15-op evaluate: cube {preds.shape}, errors {errors.tolist()}")
-    one_step_launches(trainer, x, y, counted, S15_STEP_LAUNCHES, "15-op direct")
+    one_step_launches(trainer, x, y, S15_STEP_LAUNCHES, "15-op direct")
     del trainer
     torch.cuda.empty_cache()
     batches = minibatches(dataset, dev, 10, BATCH)
@@ -1923,7 +1948,7 @@ def run_shiftinv15(dev, C, dataset, idx0, counted):
             ("int8", dict(mask_dtype="int8"), S15_INT8_STEP_LAUNCHES, "masked"),
             ("block", dict(neighbor_impl="block"), S15_BLOCK_STEP_LAUNCHES, "block")):
         rcfg = route_cfg(C, dataset, **model)
-        rec = eager_vs_graph(dev, dataset, rcfg, counted, want,
+        rec = eager_vs_graph(dev, dataset, rcfg, want,
                              f"15-op {label} route")
         check(rec.get("impl") == impl and (impl != "masked"
                                            or rec.get("core") == list(CORE_15)),
@@ -1996,7 +2021,7 @@ def run_shiftinv15(dev, C, dataset, idx0, counted):
     print(f"shiftinv15 (phase 17 a-e): {json.dumps(summary)}")
 
 
-def run_graph_options(dev, C, dataset, counted):
+def run_graph_options(dev, C, dataset):
     """Phase 17 (f, g): --remat on the main path and the 15-op direct
     route, and the exact and banded kNN and a non-cube forward, card
     against CPU."""
@@ -2030,7 +2055,7 @@ def run_graph_options(dev, C, dataset, counted):
         print(f"main path f32 32^3 b4, remat={remat}: loss {float(loss.detach())!r}, "
               f"peak of one forward + backward {peak / 2**20:.1f} MiB")
         summary[f"remat_{remat}_peak_mib"] = peak / 2**20
-        one_step_launches(trainer, x, y, counted,
+        one_step_launches(trainer, x, y,
                           REMAT_STEP_LAUNCHES if remat else
                           {"lattice_knn": 1, "neighbor_gather": 12,
                            "neighbor_segment_sum": 11},
@@ -2044,9 +2069,9 @@ def run_graph_options(dev, C, dataset, counted):
           f"{torch.equal(g0, g1)}, max |diff| / max |grad| {diff:.2e}")
     check(torch.allclose(g1, g0, rtol=1e-6, atol=0), "remat gradients differ")
     eager_vs_graph(dev, dataset, route_cfg(C, dataset, family="shiftinv",
-                                           remat=True), counted,
+                                           remat=True),
                    REMAT_STEP_LAUNCHES, "main path bf16 --remat")
-    eager_vs_graph(dev, dataset, route_cfg(C, dataset, remat=True), counted,
+    eager_vs_graph(dev, dataset, route_cfg(C, dataset, remat=True),
                    S15_REMAT_STEP_LAUNCHES, "15-op direct bf16 --remat")
 
     # (g) the exact and banded kNN at 32^3 b1, card against CPU
@@ -2155,7 +2180,7 @@ def check_fused(dev, idx):
     # the slice's path: at each shape one wrapper call with the count set
     # to 0 just before and read just after; then its checks and times
     path = [(MASK_CORE, c, q) for c, q in FUSED_BOUNDARIES] + [((8, 8, 8), 32, 32)]
-    launches = 0
+    path_launches = 0
     masks = None
     for core, c, q in path:
         if masks is None or core != MASK_CORE:
@@ -2164,12 +2189,12 @@ def check_fused(dev, idx):
             masks = blocked.block_masks(idx, CELLS, WINDOW, bf, core,
                                         drop_self_slot0=True)
         args = inputs(masks, c, q, bf, (1.0, 0.01, 0.1))
-        reset_counts(FK)
+        reset_counts()
         got = FK.fused_boundary_dot(masks, *args)
         torch.cuda.synchronize()
-        n = FK.LAUNCHES["fused_boundary_dot"]
+        n = launches()["fused_boundary_dot"]
         check(n == 1, f"kernel J launched {n} times on one path call")
-        launches += n
+        path_launches += n
         b, nb, et, p = masks.shape
         tl = FK.fused_tiling(p, c, q, FK.max_smem(dev))
         label = (f"core {core} {tuple(masks.shape)} C={c} q={q} (cluster "
@@ -2194,7 +2219,7 @@ def check_fused(dev, idx):
                 lambda: FK.boundary_reference(masks, *args), iters=3, warmup=1))
             print(f"time fused_boundary_dot bench shape: plain {rec['plain_ms']:.4f} ms")
         del got, args
-    print(f"kernel J path: {len(path)} shapes, {launches} launches")
+    print(f"kernel J path: {len(path)} shapes, {path_launches} launches")
     del masks
     torch.cuda.empty_cache()
 
@@ -2236,7 +2261,7 @@ def check_fused(dev, idx):
     label = f"bf16 core (2,2,4) C=q=32, cluster of {tl.cluster}"
     hold(small, args, got, bf_tol, label)
     same(forced, got, label)
-    return rec, launches
+    return rec, path_launches
 
 
 def cross_route(dev, C, dataset, mask_dtype="index", family="shiftinv", **route):
@@ -2279,6 +2304,184 @@ def cross_route(dev, C, dataset, mask_dtype="index", family="shiftinv", **route)
                                        "disagree")
 
 
+def replay_kernels(scan, batch, tries=3):
+    """(timeline segments ms, [(start us, end us)] of the device
+    activities) of one profiled fit_scan step on `batch` (1, b, N, C)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            scan.run(batch, 6)
+            torch.cuda.synchronize()
+        kern = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)]
+        if kern:
+            return scan.timeline.segments_ms(), kern
+    raise RuntimeError("chip_smoke: torch.profiler saw no device activity in "
+                       f"{tries} windows of one replay")
+
+
+def union_us(intervals):
+    total, cur = 0.0, None
+    for s, e in sorted(intervals):
+        if cur is None or s > cur[1]:
+            total += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    return total + (0.0 if cur is None else cur[1] - cur[0])
+
+
+def step_phases(segments):
+    """{forward, backward, adam} ms of a step's timeline, as the
+    benchmark's readers split it (benchmark_torch/yardstick/samples.py)."""
+    from benchmark_torch.yardstick import samples
+    return {p: samples.phase_ms(segments, p) for p in samples.PHASES}
+
+def run_tracing(dev, C, dataset):
+    """Phase 18: the program's tracing (nbody_tpu_torch/tracing.py) on the
+    main path at 32^3 b4 bf16.  With no profiler an eager train step and a
+    rollout hop create no CUDA event and mark nothing; fit_scan's capture
+    records the step's timeline into the graph (external timing events)
+    and counts nothing itself; a chunk of T replays then moves
+    graph.replays by T, graph.captures by 0, every launch counter by T
+    times the capture's (STEP_LAUNCHES), loss.particles by T*b*N and
+    timeline.marks by T times the timeline's marks; the replayed
+    timeline's segments, all non-negative, sum to within 5 % of one
+    profiled replay's extent on the card (first kernel's start to last
+    kernel's end; its busy time printed beside); a profiled fit_scan of a fresh
+    trainer takes one sample a chunk, with its own graph counts, and the
+    program's spans appear among the profiler's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from nbody_tpu_torch import tracing
+    from nbody_tpu_torch.data.dataset import split_batch
+    from nbody_tpu_torch.train.rollout import make_rollout, stack_params
+    from nbody_tpu_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    summary = {}
+    cfg = C.Config(dataset.cfg, C.ModelConfig(
+        family="shiftinv", channels=tuple(C.GRAPH_CHANNELS), k_neighbors=K,
+        dtype="bfloat16", knn_window=WINDOW),
+        C.TrainConfig(num_iters=20, batch_size=BATCH, learn_rate=1e-3,
+                      checkpoint_every=10))
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, dev, dataset=dataset)
+    x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
+    batches = minibatches(dataset, dev, 12, BATCH)
+    made = []
+    real_event = torch.cuda.Event
+
+    def counted_event(*args, **kwargs):
+        made.append(bool(kwargs.get("external", False)))
+        return real_event(*args, **kwargs)
+
+    torch.cuda.Event = counted_event
+    try:
+        reset_counts()
+        trainer.train_step(x, y)
+        model = trainer.model
+        make_rollout(model)(stack_params([dict(model.named_parameters())]), x)
+        torch.cuda.synchronize()
+        quiet = tracing.counters()
+        print(f"no profiler: an eager step and a rollout hop created {len(made)} "
+              f"CUDA events; counters {quiet}")
+        check(not made and "timeline.marks" not in quiet
+              and trainer.train_step.timeline is None,
+              "an eager step or a rollout hop with no profiler created CUDA "
+              "events or marked its timeline")
+        scan = trainer.train_scan
+        scan.run(batches[:1], 6)                # the eager first step
+        check(not made, "fit_scan's eager first step created CUDA events")
+        reset_counts()
+        scan.run(batches[1:2], 6)               # captured, then replayed
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.Event = real_event
+    tl = scan.timeline
+    first = tracing.counters()
+    names = tl.names
+    print(f"the capture made {len(made)} CUDA events (external: "
+          f"{sum(made)}); the step's marks {names}; counters after the "
+          f"captured step's replay {first}")
+    check(len(made) == len(names) and all(made),
+          "the capture did not make one external event a mark")
+    check(names[:4] == ["start", "knn", "plan", "features"]
+          and names[-3:] == ["layer0.backward", "backward", "adam"]
+          and "loss" in names, f"the step's marks are {names}")
+    check(first.get("graph.captures") == 1 and first.get("graph.replays") == 1,
+          f"the captured step counted {first}")
+    once = {k: v for k, v in first.items() if k.startswith("launch.")}
+    check(all(once.get("launch." + n, 0) == v for n, v in STEP_LAUNCHES.items()),
+          f"the capture's launches {once}, expected {STEP_LAUNCHES}")
+
+    steps = 10
+    before = tracing.counters()
+    scan.run(batches[2:2 + steps], 6)
+    torch.cuda.synchronize()
+    moved = tracing.delta(before)
+    print(f"a chunk of {steps} replays moved {moved}")
+    check(moved.get("graph.replays") == steps and "graph.captures" not in moved,
+          f"{steps} replays moved the graph counters {moved}")
+    check({k: v for k, v in moved.items() if k.startswith("launch.")}
+          == {k: steps * v for k, v in once.items()},
+          f"{steps} replays did not add {steps} times the capture's launches")
+    check(moved.get("loss.particles") == steps * BATCH * CELLS ** 3,
+          f"loss.particles moved {moved.get('loss.particles')}")
+    check(moved.get("timeline.marks") == steps * len(names),
+          "the replays did not record the timeline's marks")
+    seg, kern = replay_kernels(scan, batches[:1])
+    total = sum(seg.values())
+    busy = union_us(kern) / 1e3
+    extent = (max(e for _, e in kern) - min(s for s, _ in kern)) / 1e3
+    phases = step_phases(seg)
+    print(f"one profiled replay: timeline {total:.4f} ms ({phases}), device "
+          f"busy {busy:.4f} ms, first kernel start to last end {extent:.4f} "
+          f"ms; segments {seg}")
+    check(all(np.isfinite(v) and v >= 0.0 for v in seg.values()) and total > 0,
+          f"the replayed timeline's segments are {seg}")
+    # the events time the step's span on the card, the gaps between its
+    # kernels included: held to the replay's first-to-last kernel extent
+    check(abs(total - extent) <= 0.05 * extent,
+          f"the timeline's {total:.4f} ms is more than 5 % off the replay's "
+          f"{extent:.4f} ms from its first kernel's start to its last's end")
+    summary.update(timeline_ms=total, busy_ms=busy, extent_ms=extent,
+                   phases_ms=phases, marks=len(names))
+    del trainer, scan
+
+    # a fresh trainer's fit_scan under a profiler: the warm step and the
+    # capture in the first chunk, one sample a chunk, the program's spans
+    tracing.reset()
+    trainer = Trainer(cfg, dev, dataset=dataset)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        trainer.fit_scan(verbose=False, scan_chunk=10)
+        torch.cuda.synchronize()
+    got = tracing.samples()
+    spans = {e.name for e in prof.events()} & {
+        "fit_scan.stage", "fit_scan.steps", "fit_scan.read_losses",
+        "coverage.exact", "coverage.monitor", "train_scan.warm_step",
+        "train_scan.capture"}
+    counts = [s["counts"] for s in got]
+    print(f"profiled fit_scan of 20 steps in chunks of 10: {len(got)} samples, "
+          f"graph counts {[(c.get('graph.captures', 0), c.get('graph.replays', 0)) for c in counts]}, "
+          f"forward/backward/adam ms {[step_phases(s['device_ms']) for s in got]}; "
+          f"spans seen {sorted(spans)}")
+    check(len(got) == 2 and [s["steps"] for s in got] == [10, 10],
+          f"the profiled fit_scan took {len(got)} samples")
+    check([(c.get("graph.captures", 0), c.get("graph.replays", 0)) for c in counts]
+          == [(1, 9), (0, 10)], f"the samples' graph counts are {counts}")
+    check(all(s["device_ms"] for s in got)
+          and all(r.get("device_ms") for r in trainer.metrics_log if "step" in r),
+          "a chunk's record or sample has no device_ms")
+    check(len(spans) == 7, f"the profiler saw the program's spans {sorted(spans)}")
+    del trainer
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"tracing (phase 18): {json.dumps(summary)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2288,8 +2491,8 @@ def main() -> int:
     from nbody_tpu_torch.data.dataset import Dataset, split_batch
     from nbody_tpu_torch.models.registry import build_model
     from nbody_tpu_torch.ops.kernels import (banded_kernels, block_kernels, build,
-                                             fused_kernels, idx_kernels,
-                                             mask_kernels, topk_kernels)
+                                             fused_kernels, mask_kernels,
+                                             topk_kernels)
     from nbody_tpu_torch.physics.losses import loss_za
     from nbody_tpu_torch.train.trainer import Trainer
 
@@ -2345,15 +2548,13 @@ def main() -> int:
     cov = trainer.check_graph_coverage(x0)
     print(f"coverage guard: {cov} violations")
     check(cov == 0, "the lattice window does not cover the data")
-    counted = (topk_kernels, banded_kernels, idx_kernels, block_kernels,
-               mask_kernels)
-    reset_counts(*counted)
+    reset_counts()
     t0 = time.perf_counter()
     trainer.fit(verbose=True)
     fit_s = time.perf_counter() - t0
     errors, preds = trainer.evaluate("test", verbose=True)
     torch.cuda.synchronize()
-    counters = {k: v for m in counted for k, v in m.LAUNCHES.items()}
+    counters = launches()
     print(f"launches during fit + evaluate: {counters}")
     losses = [r["loss"] for r in trainer.metrics_log if "step" in r]
     print(f"fit: 5 steps in {fit_s:.2f} s (host clock, coverage check "
@@ -2371,10 +2572,10 @@ def main() -> int:
     print(f"evaluate: cube {preds.shape}, errors {errors.tolist()}")
 
     x, y = split_batch(torch.as_tensor(dataset.X_train[:BATCH], device=dev))
-    reset_counts(*counted)
+    reset_counts()
     trainer.train_step(x, y)
     torch.cuda.synchronize()
-    step = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+    step = launches()
     print(f"launches in one train step: {step}")
     check(all(step.get(n, 0) == want for n, want in STEP_LAUNCHES.items()),
           f"one train step launched {step}, expected {STEP_LAUNCHES}")
@@ -2411,12 +2612,12 @@ def main() -> int:
     rec.update(check_select_kernels(dev, idx64, idx0))
     del x64, idx64, want64
     # 7. the 64^3 shiftinv_vel index path
-    counts64 = run_vel64(dev, ds64, trainer64, counted)
+    counts64 = run_vel64(dev, ds64, trainer64)
     del trainer64
     for n in ("idx_dot_gather", "idx_dot_scatter"):
         counters[n] = counts64[n]
     # 8. the --impl block route
-    counts_block = run_block32(dev, C, dataset, counted)
+    counts_block = run_block32(dev, C, dataset)
     for n in ("block_gather", "block_scatter"):
         counters[n] = counts_block[n]
     # 9. index route against the direct route
@@ -2424,7 +2625,7 @@ def main() -> int:
     # 10. kernels H/I vs plain versions, on the main path's graph
     rec.update(check_mask_kernels(dev, idx0))
     # 11. the int8 and int4 mask routes
-    counts_int = run_int_route(dev, C, dataset, counted)
+    counts_int = run_int_route(dev, C, dataset)
     for n in ("mask_dot_gather", "mask_dot_scatter"):
         counters[n] = counts_int[n]
     # 12. int8 route against the direct route
@@ -2432,14 +2633,16 @@ def main() -> int:
     # 13. kernel J vs boundary_reference
     rec["fused_boundary_dot"], counters["fused_boundary_dot"] = check_fused(dev, idx0)
     # 14. the run around the step: fit_scan's CUDA graph, the CLI
-    run_scan(dev, C, dataset, ds64, counted)
+    run_scan(dev, C, dataset, ds64)
     # 15. the set and attn families, cli.experiment
-    run_set_attn(dev, C, dataset, counted)
+    run_set_attn(dev, C, dataset)
     # 16. the redshift-chain rollout at full width, cli.rollout
-    run_rollout(dev, C, counted)
+    run_rollout(dev, C)
     # 17. the 15-op family on every route, --remat, the kNN methods
-    run_shiftinv15(dev, C, dataset, idx0, counted)
-    run_graph_options(dev, C, dataset, counted)
+    run_shiftinv15(dev, C, dataset, idx0)
+    run_graph_options(dev, C, dataset)
+    # 18. the program's tracing: timeline, counters, samples, spans
+    run_tracing(dev, C, dataset)
 
     kernels = [{"name": n, "route": "cuda", "source": REPO_KERNELS[n][0],
                 "replaces": REPO_KERNELS[n][1], "launches": counters[n],

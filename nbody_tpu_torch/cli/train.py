@@ -15,7 +15,8 @@ step for step as the JAX CLI: a Saver names the run (a random tag without
 -n, printed as MODEL NAMED) and receives the checkpoints, metrics.jsonl,
 the training-error series, the result cube and the test errors; -r
 restores the latest checkpoint first; --trace DIR writes a torch.profiler
-chrome trace of the training loop to DIR/trace.json.
+chrome trace of the training loop to DIR/trace.json, which carries the
+program's span names (tracing.py).
 """
 
 from __future__ import annotations
@@ -76,12 +77,12 @@ def main(argv=None) -> int:
 
     print(f"\nTraining ({cfg.model.family}, N={dataset.num_particles}, "
           f"b={cfg.train.batch_size}, {cfg.model.dtype}, {device}):\n{'=' * 78}")
-    t0 = time.time()
+    t0 = time.perf_counter()
     if args.trace:
         _train_traced(trainer, cfg, args.trace)
     else:
         _train(trainer, cfg)
-    print(f"Training finished!\n\tElapsed time: {(time.time() - t0) / 60:.2f}m")
+    print(f"Training finished!\n\tElapsed time: {(time.perf_counter() - t0) / 60:.2f}m")
     saver.save_checkpoint(trainer, trainer.step)
     if trainer.train_error_history:
         # per-checkpoint training-error series (reference train.py:117-120,

@@ -8,7 +8,9 @@ the JAX package's (and the reference's) layout -- error_test.npy,
 error_training.npy and X_{i}_prediction.npy of shape (2, ntest, N,
 out_ch), f32 -- so nbody_tpu/viz reads a port run's Results directory as
 it reads a JAX run's.  Checkpoints are the port's own torch files
-(io_/checkpoint.py).
+(io_/checkpoint.py).  While a profiler records, a checkpoint save and a
+metrics append are the spans ``saver.save_checkpoint`` and
+``saver.append_metrics`` (tracing.py).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from typing import Any, Optional
 import numpy as np
 
 from nbody_tpu_torch import config as C
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.io_ import checkpoint
 
 
@@ -58,7 +61,8 @@ class Saver:
 
     # --- checkpoints -------------------------------------------------------
     def save_checkpoint(self, state: Any, step: int) -> str:
-        return checkpoint.save_checkpoint(self.params, state, step)
+        with tracing.span("saver.save_checkpoint"):
+            return checkpoint.save_checkpoint(self.params, state, step)
 
     def restore_checkpoint(self, state: Any, step: Optional[int] = None) -> int:
         return checkpoint.restore_checkpoint(self.params, state, step)
@@ -80,7 +84,8 @@ class Saver:
 
     # --- metrics -----------------------------------------------------------
     def append_metrics(self, record: dict):
-        with open(self._metrics_path, "a") as f:
+        with tracing.span("saver.append_metrics"), \
+                open(self._metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
     # --- console reports (reference utils.py:500-515) ----------------------

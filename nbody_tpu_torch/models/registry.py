@@ -35,6 +35,7 @@ import torch
 from torch import nn
 
 from nbody_tpu_torch import config as C
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.models import attn, set_net, shiftinv, shiftinv15
 from nbody_tpu_torch.ops import blocked
 from nbody_tpu_torch.ops.banded import band_violations, default_band
@@ -262,7 +263,9 @@ class AttnModel(_Model):
 class ShiftInvModel(_Model):
     """The shiftinv and shiftinv_vel families: kNN graph + 4-op graph
     network.  knn_fn, apply_with_idx and impl_record keep their JAX
-    names.  The parameters live on `device`, the card unless named."""
+    names; forward marks ``knn`` after the search into an open step
+    timeline (tracing.py).  The parameters live on `device`, the card
+    unless named."""
 
     def __init__(self, cfg: C.ModelConfig, box: float, device=None):
         super().__init__(cfg, box)
@@ -312,7 +315,9 @@ class ShiftInvModel(_Model):
                                        remat=remat)
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
-        return self.apply_with_idx(x_in, self.knn_fn(x_in))
+        idx = self.knn_fn(x_in)
+        tracing.mark("knn")
+        return self.apply_with_idx(x_in, idx)
 
 
 class ShiftInv15Model(ShiftInvModel):

@@ -20,7 +20,9 @@ positions, or int8 / packed int4 one-hot masks) the network keeps edge activatio
 edges enter and leave the cube layout once.  The velocity model (shiftinv_vel) adds node velocities
 to the edge features and two learnable output scalars.  With ``remat``
 each layer is recomputed in the backward pass (base.remat_layer), in both
-network forms, as jax.checkpoint wraps each layer in JAX.
+network forms, as jax.checkpoint wraps each layer in JAX.  Into an open
+step timeline (tracing.py) the model marks ``plan`` and ``features`` and
+probes each layer's output, outside the remat wrapper.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from nbody_tpu_torch import config as C
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.models.base import (LayerParams, ShiftInvVelParams,
                                          init_network_params, remat_layer)
 from nbody_tpu_torch.ops import blocked
@@ -114,6 +117,7 @@ def shiftinv_network(params: List[Dict[str, torch.Tensor]], edges: torch.Tensor,
                   lattice=lattice, masks=masks, plan=plan)
         if not is_last:
             h = activation(h)
+        h = tracing.probe(h, f"layer{i}")
     return h
 
 
@@ -173,6 +177,7 @@ def _shiftinv_network_blocks(params, edges: torch.Tensor, masks, lattice,
                    core, self_free)
         if not is_last:
             hB = activation(hB)
+        hB = tracing.probe(hB, f"layer{i}")
     return blocked.nodes_blocks_to_cube(hB, cells, core=core)   # (b, N, q)
 
 
@@ -193,7 +198,9 @@ def shiftinv_model(params: List[Dict[str, torch.Tensor]], pos: torch.Tensor,
     with self at slot 0 -> (b, N, q).  The step's plan is built once and
     serves the features' gather and the network."""
     plan = route_plan(idx, lattice, masks)
+    tracing.mark("plan")
     edges = edge_features_za(pos, idx, za_disp, box, lattice, masks, plan)
+    tracing.mark("features")
     return _network(params, edges, idx, activation, lattice, masks, plan,
                     remat)
 
@@ -208,8 +215,10 @@ def shiftinv_vel_model(params, pos: torch.Tensor, za_disp: torch.Tensor,
     at row (3), vel at col (3)]; output (b, N, 6): displacement and
     velocity residuals scaled by T[0] and T[1]."""
     plan = route_plan(idx, lattice, masks)
+    tracing.mark("plan")
     edges = edge_features_with_nodes(pos, idx, vel, box, za_disp=za_disp,
                                      lattice=lattice, masks=masks, plan=plan)
+    tracing.mark("features")
     net = _network(params["layers"], edges, idx, activation, lattice, masks,
                    plan, remat)
     t = params["T"]

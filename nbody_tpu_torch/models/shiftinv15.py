@@ -32,7 +32,9 @@ follow JAX's promotions step by step: the cube form's f32 graph fields
 (mask_b, deg) promote the edge tensors they touch to f32, and the
 block-major form casts its pool results back to the edge dtype.  With
 ``remat`` each layer is recomputed in the backward pass
-(base.remat_layer).
+(base.remat_layer).  Into an open step timeline (tracing.py) the model
+marks ``plan`` after the route's plan, the graph and the lookup,
+``features``, and probes each layer's output, outside the remat wrapper.
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ from typing import Callable, Dict, List, NamedTuple
 
 import torch
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.models.base import (LayerParams, init_network_params,
                                          remat_layer)
 from nbody_tpu_torch.ops import blocked
@@ -334,10 +337,11 @@ def _shift_inv_15op_layer_blocks(hB: torch.Tensor, layer_params, masks,
 
 
 def _shiftinv15_network_blocks(params, edges: torch.Tensor,
-                               graph: BlockSymGraph, activation: Callable,
-                               remat: bool, lattice, masks) -> torch.Tensor:
+                               graph: BlockSymGraph, lookup: ReverseLookup,
+                               activation: Callable, remat: bool, lattice,
+                               masks) -> torch.Tensor:
     """Masked-route network (shiftinv15.py:543-581): block-major edge
-    activations end to end; the lookup over block-major ids is built once."""
+    activations end to end, over the lookup of block-major ids."""
     core = blocked.lattice_core(lattice)
     cells = lattice[0]
     b, _, n, k, c = edges.shape
@@ -348,7 +352,6 @@ def _shiftinv15_network_blocks(params, edges: torch.Tensor,
     # f32 whatever the compute dtype: the pool divisions
     deg = graph.deg.to(torch.float32)
     live = torch.sum(deg, dim=-1)
-    lookup = reverse_lookup(graph, cells, core)
     layer = remat_layer(_shift_inv_15op_layer_blocks, remat)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
@@ -356,23 +359,24 @@ def _shiftinv15_network_blocks(params, edges: torch.Tensor,
                    is_last)
         if not is_last:
             hB = activation(hB)
+        hB = tracing.probe(hB, f"layer{i}")
     return hB
 
 
 def shiftinv15_network(params: List[Dict[str, torch.Tensor]],
                        edges: torch.Tensor, graph: BlockSymGraph,
+                       lookup: ReverseLookup,
                        activation: Callable = torch.relu, remat: bool = False,
                        lattice=None, masks=None, plan=None) -> torch.Tensor:
     """Layer stack (reference network_func_15op_shift_inv_za;
-    shiftinv15.py:584-605): the block-major form on the masked routes,
-    else the cube form over `plan` (route_plan, built here when not
-    given) and one cube-order lookup."""
+    shiftinv15.py:584-605) over the transpose's `lookup`
+    (reverse_lookup): the block-major form on the masked routes, else
+    the cube form over `plan` (route_plan, built here when not given)."""
     if masks is not None and lattice is not None:
-        return _shiftinv15_network_blocks(params, edges, graph, activation,
-                                          remat, lattice, masks)
+        return _shiftinv15_network_blocks(params, edges, graph, lookup,
+                                          activation, remat, lattice, masks)
     if plan is None:
         plan = route_plan(graph.idx, lattice)
-    lookup = reverse_lookup(graph)
     layer = remat_layer(shift_inv_15op_layer, remat)
     h = edges
     for i, layer_params in enumerate(params):
@@ -381,6 +385,7 @@ def shiftinv15_network(params: List[Dict[str, torch.Tensor]],
                   plan=plan, lookup=lookup)
         if not is_last:
             h = activation(h)
+        h = tracing.probe(h, f"layer{i}")
     return h
 
 
@@ -390,12 +395,19 @@ def shiftinv15_model(params, pos: torch.Tensor, za_disp: torch.Tensor,
                      lattice=None, masks=None) -> torch.Tensor:
     """Symmetrized graph + features + network (shiftinv15.py:608-624).
     pos (b, N, 3) raw positions, za_disp (b, N, 3), idx (b, N, K) with
-    self at slot 0 -> (b, N, q).  The route's plan is built once; the
-    direct route's GraphPlan also serves the graph's degree scatter."""
+    self at slot 0 -> (b, N, q).  The route's plan, the graph and the
+    transpose's lookup are built once, before the features; the direct
+    route's GraphPlan also serves the graph's degree scatter."""
     plan = route_plan(idx, lattice, masks)
     graph = build_block_sym_graph(
         idx, plan if isinstance(plan, GraphPlan) else None)
+    if masks is not None and lattice is not None:
+        lookup = reverse_lookup(graph, lattice[0], blocked.lattice_core(lattice))
+    else:
+        lookup = reverse_lookup(graph)
+    tracing.mark("plan")
     feats = block_edge_features_za(pos, graph, za_disp, box, lattice, masks,
                                    plan)
-    return shiftinv15_network(params, feats.to(pos.dtype), graph, activation,
-                              remat, lattice, masks, plan)
+    tracing.mark("features")
+    return shiftinv15_network(params, feats.to(pos.dtype), graph, lookup,
+                              activation, remat, lattice, masks, plan)

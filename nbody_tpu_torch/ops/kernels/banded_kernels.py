@@ -30,10 +30,9 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.ops.kernels import build
 
-# launches of the CUDA kernels in this process (reset by callers that count)
-LAUNCHES = {"neighbor_gather": 0, "neighbor_segment_sum": 0}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -212,7 +211,7 @@ def neighbor_gather(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         values.data_ptr(), idx.data_ptr(), out.data_ptr(), b, n, k, row_bytes,
         unit, values.device.index, build.stream(values.device.index))
     build.check_launch(err, "neighbor_gather_rows")
-    LAUNCHES["neighbor_gather"] += 1
+    tracing.count("launch.neighbor_gather")
     return out
 
 
@@ -233,7 +232,7 @@ def neighbor_segment_sum(vals: torch.Tensor, plan: GraphPlan) -> torch.Tensor:
         int(vals.dtype == torch.bfloat16), vals.device.index,
         build.stream(vals.device.index))
     build.check_launch(err, "neighbor_segment_sum")
-    LAUNCHES["neighbor_segment_sum"] += 1
+    tracing.count("launch.neighbor_segment_sum")
     return out
 
 

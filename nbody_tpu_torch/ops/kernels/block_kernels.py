@@ -37,12 +37,11 @@ from typing import NamedTuple
 
 import torch
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.ops.kernels import build
 from nbody_tpu_torch.ops.kernels.banded_kernels import (plan_sum_plain,
                                                         sorted_segments)
 
-# launches of the CUDA kernels in this process (reset by callers that count)
-LAUNCHES = {"block_gather": 0, "block_scatter": 0}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 _INT_MAX = 2 ** 31 - 1
 
@@ -289,7 +288,7 @@ def block_gather(p: torch.Tensor, patches: torch.Tensor,
         return block_gather_plain(p, patches, fast)
     out = launch_gather(p, patches, fast and patches.dtype == torch.float32,
                         "block_gather")
-    LAUNCHES["block_gather"] += 1
+    tracing.count("launch.block_gather")
     return out
 
 
@@ -302,5 +301,5 @@ def block_scatter(plan: BlockPlan, vals: torch.Tensor, p_size: int,
         return block_scatter_plain(plan, vals, p_size, fast)
     out = launch_scatter(plan, vals, p_size,
                          fast and vals.dtype == torch.float32, "block_scatter")
-    LAUNCHES["block_scatter"] += 1
+    tracing.count("launch.block_scatter")
     return out

@@ -30,10 +30,9 @@ from typing import NamedTuple
 
 import torch
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.ops.kernels import build
 
-# launches of the CUDA kernel in this process (reset by callers that count)
-LAUNCHES = {"fused_boundary_dot": 0}
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
@@ -259,5 +258,5 @@ def fused_boundary_dot(masks: torch.Tensor, patches: torch.Tensor,
             int(a.dtype == bf), int(w1.dtype == bf), int(patches.dtype == bf),
             f32_smem_bytes(p, c, q), dev.index, build.stream(dev.index))
         build.check_launch(err, "fused_boundary_f32")
-    LAUNCHES["fused_boundary_dot"] += 1
+    tracing.count("launch.fused_boundary_dot")
     return outs

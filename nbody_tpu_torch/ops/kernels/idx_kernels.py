@@ -26,10 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.ops.kernels import block_kernels as BK
-
-# launches of the CUDA kernels in this process (reset by callers that count)
-LAUNCHES = {"idx_dot_gather": 0, "idx_dot_scatter": 0}
 
 
 def dot_gather_plain(pos: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
@@ -50,7 +48,7 @@ def dot_gather(pos: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
     if patches.device.type == "cpu":
         return BK.select_gather_plain(pos, patches)
     out = BK.launch_gather(pos, patches, False, "idx_dot_gather")
-    LAUNCHES["idx_dot_gather"] += 1
+    tracing.count("launch.idx_dot_gather")
     return out
 
 
@@ -62,7 +60,7 @@ def dot_scatter(plan: BK.BlockPlan, edges: torch.Tensor,
     if edges.device.type == "cpu":
         return BK.plan_scatter_plain(plan, edges, p_size)
     out = BK.launch_scatter(plan, edges, p_size, False, "idx_dot_scatter")
-    LAUNCHES["idx_dot_scatter"] += 1
+    tracing.count("launch.idx_dot_scatter")
     return out
 
 

@@ -34,10 +34,9 @@ from typing import NamedTuple
 
 import torch
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.ops.kernels import build
 
-# launches of the CUDA kernels in this process (reset by callers that count)
-LAUNCHES = {"mask_dot_gather": 0, "mask_dot_scatter": 0}
 MASK_DTYPES = (torch.int8, torch.uint8)      # int8, packed int4
 _INT_MAX = 2 ** 31 - 1
 
@@ -287,7 +286,7 @@ def dot_gather(masks: torch.Tensor, patches: torch.Tensor) -> torch.Tensor:
         int(int4), tl.nt, tl.rows_per_warp, tl.warps, tl.row_tiles,
         tl.stages, tl.smem_bytes, dev, build.stream(dev))
     build.check_launch(err, "mask_dot_gather")
-    LAUNCHES["mask_dot_gather"] += 1
+    tracing.count("launch.mask_dot_gather")
     return out
 
 
@@ -311,7 +310,7 @@ def dot_scatter(masks: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
         int(int4), tl.nt, tl.rows_per_warp, tl.warps, tl.row_tiles,
         tl.smem_bytes, dev, build.stream(dev))
     build.check_launch(err, "mask_dot_scatter")
-    LAUNCHES["mask_dot_scatter"] += 1
+    tracing.count("launch.mask_dot_scatter")
     return out
 
 

@@ -28,11 +28,10 @@ import ctypes
 
 import torch
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.ops.kernels import build
 from nbody_tpu_torch.physics.pbc import min_image_diff
 
-# launches of the CUDA kernels in this process (reset by callers that count)
-LAUNCHES = {"topk_min": 0, "lattice_knn": 0}
 KMAX = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -91,7 +90,7 @@ def topk_min(d2: torch.Tensor, k: int) -> torch.Tensor:
     err = lib.topk_min_f32(d2.data_ptr(), out.data_ptr(), rows, m, k,
                            d2.device.index, build.stream(d2.device.index))
     build.check_launch(err, "topk_min_f32")
-    LAUNCHES["topk_min"] += 1
+    tracing.count("launch.topk_min")
     return out
 
 
@@ -175,5 +174,5 @@ def lattice_knn(pos: torch.Tensor, k: int, cells: int, window: int = 3,
     err = lib.lattice_knn_f32(pos.data_ptr(), out.data_ptr(), b, cells, w, k,
                               box, dev, build.stream(dev))
     build.check_launch(err, "lattice_knn_f32")
-    LAUNCHES["lattice_knn"] += 1
+    tracing.count("launch.lattice_knn")
     return out

@@ -9,7 +9,9 @@ x_in = [grid, current displacement], and adds the predicted residual to
 the displacement.  The graph families rebuild the kNN graph inside every
 hop on the model's device (kernel A, then B and C in every layer on the
 card).  Forward only: no gradient is kept.  The JAX lax.scan is a Python
-loop over the hops here; nothing in it reads the device.
+loop over the hops here; nothing in it reads the device.  While a
+profiler records, each hop is the span ``rollout.hop`` and each coverage
+count ``rollout.monitor`` (tracing.py); a hop opens no step timeline.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 from torch.func import functional_call
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.physics.losses import loss_za
 
 
@@ -56,12 +59,14 @@ def make_rollout(model: torch.nn.Module,
         steps = next(iter(stacked_params.values())).shape[0]
         traj, counts = [], []
         for t in range(steps):
-            x_in = torch.cat([q, disp], dim=-1)
-            params_t = {name: v[t] for name, v in stacked_params.items()}
-            disp = disp + functional_call(model, params_t, (x_in,))
-            traj.append(disp)
+            with tracing.span("rollout.hop"):
+                x_in = torch.cat([q, disp], dim=-1)
+                params_t = {name: v[t] for name, v in stacked_params.items()}
+                disp = disp + functional_call(model, params_t, (x_in,))
+                traj.append(disp)
             if coverage_fn is not None:
-                counts.append(coverage_fn(x_in))
+                with tracing.span("rollout.monitor"):
+                    counts.append(coverage_fn(x_in))
         traj = torch.stack(traj)
         if coverage_fn is not None:
             return disp, (traj, torch.stack(counts))

@@ -34,6 +34,17 @@ also goes to metrics.jsonl and a checkpoint labelled with the global
 step is saved every ``checkpoint_every`` steps of ``fit`` and after
 every chunk of ``fit_scan``.  Sharded and ensemble training are not ported yet
 (ROADMAP.md).
+
+Tracing (tracing.py): the train step marks ``start``, ``loss``,
+``backward`` and ``adam`` (the model marks ``knn``, ``plan``,
+``features`` and probes each layer) into a step timeline, open always
+while TrainScan captures the step's graph and on an eager step while a
+profiler records.  fit_scan reads the timeline of each chunk's last step
+at the chunk's loss read and logs it as ``device_ms``; while a profiler
+records it also samples it with the chunk's counter deltas, and spans
+name the chunk's staging, steps and loss read, the coverage checks and
+the graph's warm step and capture.  ``elapsed_s`` is on the monotonic
+``time.perf_counter()`` clock.
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import numpy as np
 import torch
 
 from nbody_tpu_torch import config as C
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.data.dataset import Dataset, make_dataset, split_batch
 from nbody_tpu_torch.models.registry import build_model, coverage_violations
 from nbody_tpu_torch.ops.knn import lattice_violations
@@ -69,18 +81,37 @@ def make_optimizer(model: torch.nn.Module, learn_rate: float) -> torch.optim.Ada
                             betas=(0.9, 0.999), eps=1e-8, capturable=cuda)
 
 
-def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-                    loss_fn: Callable = loss_za):
-    """(x_in, y_true) -> loss (a device scalar; reading it synchronizes)."""
+class TrainStep:
+    """(x_in, y_true) -> loss (a device scalar; reading it synchronizes).
+    The step opens a step timeline (tracing.timeline: always with
+    ``capture``, else while a profiler records) and marks ``start``,
+    ``loss``, ``backward`` after loss.backward() returns and ``adam``
+    after the update; ``timeline`` is the last call's, or None."""
 
-    def step(x_in: torch.Tensor, y_true: torch.Tensor) -> torch.Tensor:
-        optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(x_in), y_true)
-        loss.backward()
-        optimizer.step()
+    def __init__(self, model: torch.nn.Module,
+                 optimizer: torch.optim.Optimizer, loss_fn: Callable = loss_za):
+        self.model, self.optimizer, self.loss_fn = model, optimizer, loss_fn
+        self.timeline: Optional[tracing.Timeline] = None
+
+    def __call__(self, x_in: torch.Tensor, y_true: torch.Tensor,
+                 capture: bool = False) -> torch.Tensor:
+        with tracing.timeline(x_in.device, always=capture) as tl:
+            tracing.mark("start")
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self.loss_fn(self.model(x_in), y_true)
+            tracing.mark("loss")
+            loss.backward()
+            tracing.mark("backward")
+            self.optimizer.step()
+            tracing.mark("adam")
+        self.timeline = tl
         return loss.detach()
 
-    return step
+
+def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+                    loss_fn: Callable = loss_za) -> TrainStep:
+    """(x_in, y_true) -> loss (a device scalar; reading it synchronizes)."""
+    return TrainStep(model, optimizer, loss_fn)
 
 
 def make_eval_step(model: torch.nn.Module, loss_fn: Callable = loss_za):
@@ -104,6 +135,9 @@ class _Slot:
     warm: bool = False
     graph: Optional["torch.cuda.CUDAGraph"] = None
     loss: Optional[torch.Tensor] = None
+    timeline: Optional[tracing.Timeline] = None
+    # what the capture counted (tracing.py), added at every replay
+    counts: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 class TrainScan:
@@ -122,14 +156,18 @@ class TrainScan:
     the next step; it records and executes nothing, so every replay after
     it is a step of the sequence and no extra optimizer step enters the
     trajectory.  The kernel wrappers launch on the current stream, so the
-    capture records them; their Python launch counts move once, at
-    capture.  On the CPU the same step runs eagerly, T times a call."""
+    capture records them.  The capture records the step's timeline too,
+    and its counters' change is taken back and added at every replay
+    instead (``graph.captures``, ``graph.replays``): the counters count
+    what the card ran.  ``timeline`` is the last step's.  On the CPU the
+    same step runs eagerly, T times a call."""
 
     def __init__(self, model: torch.nn.Module, optimizer: torch.optim.Optimizer,
                  loss_fn: Callable = loss_za):
         self.optimizer = optimizer
         self.step = make_train_step(model, optimizer, loss_fn)
         self._slots: Dict[tuple, _Slot] = {}
+        self.timeline: Optional[tracing.Timeline] = None
 
     def reset(self):
         """Drop the graphs (after the optimizer's state tensors were
@@ -169,13 +207,21 @@ class TrainScan:
 
     def _step(self, s: _Slot) -> torch.Tensor:
         if s.batch.device.type != "cuda":
-            return self.step(s.x_in, s.y_true)
+            loss = self.step(s.x_in, s.y_true)
+            self.timeline = self.step.timeline
+            return loss
         if s.graph is None:
             if not s.warm:
                 s.warm = True
-                return self._side_stream_step(s)
+                with tracing.span("train_scan.warm_step"):
+                    loss = self._side_stream_step(s)
+                self.timeline = self.step.timeline
+                return loss
             self._capture(s)
         s.graph.replay()
+        tracing.add(s.counts)
+        tracing.count("graph.replays")
+        self.timeline = s.timeline
         return s.loss
 
     def _side_stream_step(self, s: _Slot) -> torch.Tensor:
@@ -189,11 +235,17 @@ class TrainScan:
         return loss
 
     def _capture(self, s: _Slot):
-        # the graph's backward allocates the .grad tensors in its own pool
-        self.optimizer.zero_grad(set_to_none=True)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            s.loss = self.step(s.x_in, s.y_true)
+        before = tracing.counters()
+        with tracing.span("train_scan.capture"):
+            # the graph's backward allocates the .grad tensors in its own pool
+            self.optimizer.zero_grad(set_to_none=True)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                s.loss = self.step(s.x_in, s.y_true, capture=True)
+        s.timeline = self.step.timeline
+        s.counts = tracing.delta(before)
+        tracing.restore(before)         # the capture ran nothing on the card
+        tracing.count("graph.captures")
         s.graph = graph
 
 
@@ -242,6 +294,17 @@ class Trainer:
         if self.saver is not None:
             self.saver.save_checkpoint(self, self.step)
 
+    @staticmethod
+    def _sample(rec: dict, timeline: Optional[tracing.Timeline], steps: int,
+                before: Dict[str, int]):
+        """The last step's timeline into a checkpoint record (``device_ms``)
+        and, while a profiler records, into tracing's samples with the
+        counters' change since `before`.  The host has synchronized."""
+        device_ms = timeline.segments_ms() if timeline is not None else None
+        if device_ms:
+            rec["device_ms"] = device_ms
+        tracing.sample(steps, device_ms, before)
+
     def state_dict(self) -> dict:
         """What a checkpoint holds: the model's and the optimizer's state
         and the global step."""
@@ -266,7 +329,8 @@ class Trainer:
     def check_graph_coverage(self, x_in: torch.Tensor) -> int:
         """Edges the lattice window would drop on this batch (0 == covered);
         a nonzero count is printed and logged."""
-        v = coverage_violations(self.cfg.model, self.box, x_in)
+        with tracing.span("coverage.exact"):
+            v = coverage_violations(self.cfg.model, self.box, x_in)
         if v:
             m = self.cfg.model
             print(f"graph coverage violated: {v} rows or edges fall outside "
@@ -299,9 +363,10 @@ class Trainer:
         margin count triggers one exact check per violation episode."""
         if not self._monitored:
             return
-        pos = x_in[..., :3] + self.box / 2.0 + x_in[..., 3:6]
-        cv = int(lattice_violations(pos, self.dataset.cells, box=self.box,
-                                    window=self.cfg.model.knn_window))
+        with tracing.span("coverage.monitor"):
+            pos = x_in[..., :3] + self.box / 2.0 + x_in[..., 3:6]
+            cv = int(lattice_violations(pos, self.dataset.cells, box=self.box,
+                                        window=self.cfg.model.knn_window))
         rec["coverage_margin_violations"] = cv
         if cv == 0:
             self._cov_confirmed = False     # re-arm for a later episode
@@ -319,7 +384,8 @@ class Trainer:
         rng = rng if rng is not None else self.dataset.minibatch_rng()
         self.model.train()
         loss = None
-        t0 = time.time()
+        t0 = time.perf_counter()
+        before = tracing.counters()
         for it in range(num_iters):
             batch = self.dataset.get_minibatch(rng, tcfg.batch_size)
             x_in, y_true = split_batch(self._put(batch), self.num_inputs)
@@ -332,7 +398,10 @@ class Trainer:
             if (it + 1) % tcfg.checkpoint_every == 0:
                 last = float(loss)
                 rec = {"step": it + 1, "loss": last,
-                       "elapsed_s": time.time() - t0}
+                       "elapsed_s": time.perf_counter() - t0}
+                self._sample(rec, self.train_step.timeline,
+                             tcfg.checkpoint_every, before)
+                before = tracing.counters()
                 self._monitor_coverage(x_in, rec)
                 self._log(rec)
                 self.train_error_history.append(last)
@@ -375,30 +444,36 @@ class Trainer:
         self.model.train()
         ni = self.num_inputs
         last = float("nan")
-        t0 = time.time()
+        t0 = time.perf_counter()
         done = 0
         while done < num_iters:
+            before = tracing.counters()
             t = min(scan_chunk, num_iters - done)
-            idxs = np.stack([self.dataset.get_minibatch_indices(
-                rng, tcfg.batch_size) for _ in range(t)])
-            if use_dev:
-                idx_dev = self._put(idxs)
-                ends = [self._x_dev[idx_dev[j]][..., :ni] for j in (0, -1)]
-            else:
-                batches = self._put(self.dataset.X_train[idxs])
-                ends = [batches[j][..., :ni] for j in (0, -1)]
+            with tracing.span("fit_scan.stage"):
+                idxs = np.stack([self.dataset.get_minibatch_indices(
+                    rng, tcfg.batch_size) for _ in range(t)])
+                if use_dev:
+                    idx_dev = self._put(idxs)
+                    ends = [self._x_dev[idx_dev[j]][..., :ni] for j in (0, -1)]
+                else:
+                    batches = self._put(self.dataset.X_train[idxs])
+                    ends = [batches[j][..., :ni] for j in (0, -1)]
             if done == 0:
                 self._refuse_uncovered(ends[0])
-            if use_dev:
-                losses = self.train_scan.run_indexed(self._x_dev, idx_dev, ni)
-            else:
-                losses = self.train_scan.run(batches, ni)
+            with tracing.span("fit_scan.steps"):
+                if use_dev:
+                    losses = self.train_scan.run_indexed(self._x_dev, idx_dev, ni)
+                else:
+                    losses = self.train_scan.run(batches, ni)
             if done == 0:
                 self._log_effective_impl(verbose)
             done += t
             self.step += t
-            last = float(losses[-1])
-            rec = {"step": done, "loss": last, "elapsed_s": time.time() - t0}
+            with tracing.span("fit_scan.read_losses"):
+                last = float(losses[-1])
+                rec = {"step": done, "loss": last,
+                       "elapsed_s": time.perf_counter() - t0}
+                self._sample(rec, self.train_scan.timeline, t, before)
             self._monitor_coverage(ends[1], rec)
             self._log(rec)
             self.train_error_history.append(last)

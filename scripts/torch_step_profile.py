@@ -14,7 +14,8 @@ change, parent.  On synthetic cubes made from a fixed seed it measures:
     and int4 routes, shiftinv_vel at 64^3 batch 1 on the direct and
     --mask_dtype index routes: CUDA events, mean of 10 steps after 2
     warm-up, the peak device memory of those steps, and every kernel
-    launch of one step (the wrappers' LAUNCHES counters);
+    launch of one step (the program's launch.<wrapper> counters, or an
+    older tree's LAUNCHES dicts);
   * on the index and block routes, the block plan's build where the tree
     has one (blocked.block_index_plan);
   * the graph build (the model's knn_fn) and kernel A's own launch at 32^3
@@ -171,6 +172,23 @@ def profile_steps(step, steps=3):
             "top_kernels": top[:15]}
 
 
+def launch_counter(kernel_modules):
+    """(reset, read) of the tree's kernel launches a wrapper: the program's
+    launch.<wrapper> counters (nbody_tpu_torch/tracing.py) where the tree
+    has them, else the wrapper modules' LAUNCHES dicts."""
+    try:
+        from nbody_tpu_torch import tracing
+    except ImportError:
+        def reset():
+            for m in kernel_modules:
+                m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
+
+        return reset, lambda: {k: v for m in kernel_modules
+                               for k, v in m.LAUNCHES.items() if v}
+    return tracing.reset, lambda: {k[len("launch."):]: v for k, v in
+                                   tracing.counters().items()
+                                   if k.startswith("launch.") and v}
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--root", default=HERE)
@@ -206,7 +224,8 @@ def main() -> int:
     result = {"label": args.label, "root": root, "device": torch.cuda.get_device_name(0),
               "nvidia_smi": smi, "torch": torch.__version__, "steps": {}}
 
-    counted = (T, B, idx_kernels, block_kernels, mask_kernels)
+    reset_launches, read_launches = launch_counter(
+        (T, B, idx_kernels, block_kernels, mask_kernels))
     for route in ROUTES:
         family, cells, batch, overrides, want = ROUTES[route]
         vel = family == "shiftinv_vel"
@@ -222,11 +241,10 @@ def main() -> int:
         step(x_in, y)
         if any(model.impl_record.get(k) != v for k, v in want.items()):
             raise RuntimeError(f"route {route}: {model.impl_record}, not {want}")
-        for m in counted:
-            m.LAUNCHES.update(dict.fromkeys(m.LAUNCHES, 0))
+        reset_launches()
         step(x_in, y)
         torch.cuda.synchronize()
-        launches = {k: v for m in counted for k, v in m.LAUNCHES.items() if v}
+        launches = read_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         ms = cuda_ms(lambda: step(x_in, y))
         peak = torch.cuda.max_memory_allocated(dev)
