@@ -120,7 +120,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
      counts; ms a hop by CUDA events, idle share under torch.profiler and
      peak memory;
  17. the 15-op family (shiftinv15, GRAPH_CHANNELS, 32^3 b4, K 14, window
-     2, bf16) and the graph options both graph families share: (a) kernel
+     2, bf16) and the graph options both graph families share: (a) the
+     fused edge epilogue and the transpose's assembly
+     (csrc/edge_epilogue.cu) at every layer's (C, q), f32 and layer 0's
+     bf16, against their twins (the unfused chain) bit for bit forward,
+     the backward's sums within 1e-5 of their |terms|, repeatable, timed
+     beside their bounds and the unfused chain; kernel
      B at K' = 1 over the reverse-edge lookup's (4, 32768*14, C) table, C
      3-64 in f32 and bf16, bit-equal, and C over the lookup's plan
      bit-equal to the CPU and identical across two launches; D/E (core
@@ -153,7 +158,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      sums to within 5 % of a profiled replay's extent on the card; a
      profiled fit_scan takes one sample a chunk and shows the program's
      spans.
-The line before the last is {"kernels": [...]}, all eleven kernels with
+The line before the last is {"kernels": [...]}, all fifteen kernels with
 their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
 tensor cores); the last line is {"ok": true, "device": {...}}.
 """
@@ -216,8 +221,13 @@ CORE_15 = (8, 8, 8)
 # (B 20, C 8).  Backward: layer 0's input needs no gradient, so only its
 # broadcasts' gradients C 2; layers 1-5 the pool scatter's B 1, the
 # lookup's C 1 and the broadcasts' C 2; the row pool's B 1 (B 6, C 17)
+# and the fused edge epilogue (ops/kernels/edge_epilogue.py): its forward
+# and backward once a layer, the transpose's assembly once a widening
+# layer (0-2) and its backward in layers 1-2 (layer 0's input needs none)
+S15_EPILOGUE_LAUNCHES = {"edge_epilogue_forward": 6, "edge_epilogue_backward": 6,
+                         "edge_transpose_forward": 3, "edge_transpose_backward": 2}
 S15_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 26,
-                     "neighbor_segment_sum": 25}
+                     "neighbor_segment_sum": 25, **S15_EPILOGUE_LAUNCHES}
 # the block-major routes (core (8,8,8)): B 7 (the id gather, one lookup a
 # layer) and C 6 (the degree, five lookup gradients); the mask gather 13
 # (the features' gather and one fused gather a layer, five fused-scatter
@@ -235,13 +245,16 @@ S15_INT8_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
 # row pool, the twelve broadcasts' gradients)
 S15_BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
                            "neighbor_segment_sum": 6, "block_gather": 19,
-                           "block_scatter": 19}
+                           "block_scatter": 19, **S15_EPILOGUE_LAUNCHES}
 # --remat: every layer's forward runs again in the backward pass: the
-# 4-op main step adds B 6 and C 6, the 15-op direct step B 18 and C 7
+# 4-op main step adds B 6 and C 6, the 15-op direct step B 18 and C 7,
+# the epilogue's forward 6 and the transpose's 3
 REMAT_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 18,
                        "neighbor_segment_sum": 17}
 S15_REMAT_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 44,
-                           "neighbor_segment_sum": 32}
+                           "neighbor_segment_sum": 32, "edge_epilogue_forward": 12,
+                           "edge_epilogue_backward": 6, "edge_transpose_forward": 6,
+                           "edge_transpose_backward": 2}
 # widths the block-selection kernels see on shiftinv_vel: counts, the
 # payload gather (disp + vel), and the channels 9-32-64-64-32-16-6
 SELECT_WIDTHS = (1, 6, 9, 16, 32, 64)
@@ -250,6 +263,7 @@ GATHER_WIDTHS = (1, 3, 6, 9, 16, 32, 64)
 INDEX_CORES = ((4, 8, 8), (8, 8, 8))
 BLOCK_SRC = "nbody_tpu_torch/csrc/block_kernels.cu"
 MASK_SRC = "nbody_tpu_torch/csrc/mask_kernels.cu"
+EPILOGUE_SRC = "nbody_tpu_torch/csrc/edge_epilogue.cu"
 # widths the mask-dot kernels see on the int8 route: the counts, the
 # displacement gather and the channels 3-32-64-64-32-16-3
 MASK_WIDTHS = (1, 3, 16, 32, 64)
@@ -274,6 +288,11 @@ REPO_KERNELS = {
     "mask_dot_scatter": (MASK_SRC, "nbody_tpu/ops/pallas/mask_kernels.py:133"),
     "fused_boundary_dot": ("nbody_tpu_torch/csrc/fused_kernels.cu",
                            "nbody_tpu/ops/pallas/fused_kernels.py:66"),
+    # the 15-op layer's edge epilogue and transpose replace no TPU kernel:
+    # XLA fuses the chain they do
+    **{n: (EPILOGUE_SRC, "none (the XLA-fused chain)")
+       for n in ("edge_epilogue_forward", "edge_epilogue_backward",
+                 "edge_transpose_forward", "edge_transpose_backward")},
 }
 
 
@@ -299,13 +318,14 @@ def cuda_ms(fn, iters=20, warmup=3):
 def cuda_profile(fn, iters):
     """[(kernel name, self device us, launches)] of the CUDA kernels that
     `iters` calls of fn launch, summed by torch.profiler after one warm-up
-    call.  A profile that caught no kernel at all (seen once on the card,
-    in a window of launches that ran) is taken again, at most twice."""
+    call.  A profile that caught no kernel at all (seen on the card, in
+    windows of launches that ran) is taken again, at most twice, and said
+    so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for window in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -314,6 +334,7 @@ def cuda_profile(fn, iters):
                 for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         if sum(r[1] for r in rows) > 0:
             return rows
+        print(f"cuda_profile: window {window} of {iters} calls caught no kernel")
     raise RuntimeError("chip_smoke: torch.profiler saw no device time in "
                        "three windows")
 
@@ -981,13 +1002,15 @@ def launches() -> collections.Counter:
 
 
 def one_step_launches(trainer, x, y, want, label):
-    """Every kernel launch of one train step must be `want`, exactly."""
+    """Every kernel launch of one train step must be `want`, exactly;
+    returns them."""
     reset_counts()
     trainer.train_step(x, y)
     torch.cuda.synchronize()
     step = launches()
     print(f"launches in one {label} train step: {step}")
     check(step == want, f"one {label} train step launched {step}, expected {want}")
+    return step
 
 
 def step_time(trainer, x, y, iters, label):
@@ -1675,7 +1698,12 @@ def run_rollout(dev, C):
 # the repo's CUDA kernels by symbol: A, B, C / E / G (one segment-sum
 # body), D / F, H, I
 REPO_SYMBOLS = ("lattice_knn_kernel", "gather_rows_kernel", "segment_sum_kernel",
-                "patch_gather_kernel", "mask_gather_kernel", "mask_scatter_kernel")
+                "patch_gather_kernel", "mask_gather_kernel", "mask_scatter_kernel",
+                "edge_epilogue_kernel", "edge_epilogue_bwd_kernel",
+                "edge_sample_sums_kernel", "edge_transpose_kernel",
+                "edge_transpose_bwd_kernel")
+# the 15-op layers' (C, q) at GRAPH_CHANNELS
+EPILOGUE_LAYERS = ((3, 32), (32, 64), (64, 64), (64, 32), (32, 16), (16, 3))
 
 
 def device_breakdown(fn, iters, top=10):
@@ -1865,6 +1893,166 @@ def check_15op_kernels(dev, idx):
     return graph
 
 
+def check_edge_epilogue(dev, graph):
+    """Phase 17 (a): the fused edge epilogue and the transpose's assembly
+    (csrc/edge_epilogue.cu) at every layer's (C, q) of GRAPH_CHANNELS on
+    the card's 32^3 b4 graph, f32 operands with the bf16 biases the bf16
+    model hands them, and layer 0's (C, q) in bf16: the forward against
+    its twin (the unfused PyTorch chain, run on the card) equal as values
+    and bit for bit where nonzero, and identical across two launches; the
+    backward against its twin (the elementwise gradients equal, the sums
+    within 1e-5 of the summed |terms|, plus one bf16 unit for bf16
+    results) and identical across two launches; the transpose and its
+    backward equal to theirs.  Each is timed beside its logical bytes'
+    bound at 3.35 TB/s (each operand the kernel needs read once, dead
+    rows of block B not read, each result written once) and the unfused
+    chain (forward; autograd's backward of it), and its kernels' names
+    land in the benchmark's "other" bucket.  Returns the timings and
+    errors of every case, and the kernels line's record of each wrapper
+    at the main path's widest layer (C = q = 64, f32)."""
+    from benchmark_torch.yardstick.buckets import bucket_of
+    from nbody_tpu_torch.ops.kernels import edge_epilogue as EE
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    f32, bf = torch.float32, torch.bfloat16
+    mask_b = graph.mask_b
+    b, n, k = mask_b.shape
+    rows, live = b * n * k, float(mask_b.mean())
+
+    def randn(*shape, dt=f32):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def same(a, w):
+        """Equal as values, and bit for bit where nonzero."""
+        nz = w != 0
+        return (a.dtype == w.dtype and torch.equal(a, w)
+                and torch.equal(a[nz].float().view(torch.int32),
+                                w[nz].float().view(torch.int32)))
+
+    def unfused_backward(fn, inputs, grad):
+        leaves = [x.detach().requires_grad_() if x is not None else None
+                  for x in inputs]
+        out = fn(*leaves)
+        need = [x for x in leaves if x is not None and x.is_floating_point()]
+        return lambda: torch.autograd.grad(out, need, grad, retain_graph=True)
+
+    summary, names = {}, set()
+    cases = [((c, q), f32, i < len(EPILOGUE_LAYERS) - 1)
+             for i, (c, q) in enumerate(EPILOGUE_LAYERS)]
+    cases.append((EPILOGUE_LAYERS[0], bf, True))
+    for (c, q), dt, relu in cases:
+        label = f"C={c} q={q} {str(dt)[6:]}{' relu' if relu else ''}"
+        select = q < c
+        es = torch.tensor([], dtype=dt).element_size()
+        bias = randn(2, q, dt=bf)
+        terms = [randn(b, 2, n, k, q, dt=dt), randn(b, 2, n, k, q, dt=dt),
+                 randn(b, n, k, q, dt=dt) if select else None,
+                 randn(b, n, k, q, dt=dt), randn(b, n, k, q, dt=dt),
+                 *(randn(b, n, q, dt=dt) for _ in range(5)),
+                 *(randn(b, q, dt=dt) for _ in range(4)), bias[0], bias[1]]
+
+        def fwd():
+            return EE.edge_epilogue_forward(relu, mask_b, *terms)
+
+        def plain():
+            return EE.epilogue_plain(relu, mask_b, *terms)
+
+        got, want = fwd(), plain()
+        fwd_err = float((got - want).abs().max())
+        check(same(got, want) and torch.equal(got, fwd()),
+              f"edge epilogue {label}: not the unfused chain's values or bits, "
+              "or not repeatable")
+        grad = randn(b, 2, n, k, q)
+        y = want if relu else None
+
+        def bwd():
+            return EE.edge_epilogue_backward(grad, y, mask_b, select, dt, bf)
+
+        g1, g2 = bwd(), bwd()
+        gw = EE.epilogue_backward_plain(grad, y, mask_b, select, dt, bf)
+        gabs = EE.epilogue_backward_plain(grad.abs(), y, mask_b, select, f32, f32)
+        worst, bwd_err = 0.0, 0.0
+        for i, (a_, a2, w_, s_) in enumerate(zip(g1, g2, gw, gabs)):
+            if w_ is None:
+                check(a_ is None, f"edge epilogue backward {label}: gradient {i}")
+                continue
+            check(a_.dtype == w_.dtype and a_.shape == w_.shape
+                  and torch.equal(a_, a2),
+                  f"edge epilogue backward {label}: gradient {i} of dtype "
+                  f"{a_.dtype} shape {tuple(a_.shape)}, or not repeatable")
+            bwd_err = max(bwd_err, float((a_.float() - w_.float()).abs().max()))
+            if i in (0, 1, 2, 3, 4, 7, 8, 9):           # elementwise: exact
+                check(torch.equal(a_, w_),
+                      f"edge epilogue backward {label}: gradient {i} differs")
+                continue
+            tol = 1e-5 * s_.float() + (bf16_ulp(w_) if w_.dtype == bf else 0.0)
+            worst = max(worst, float(((a_.float() - w_.float()).abs() - tol).max()))
+        check(worst <= 0, f"edge epilogue backward {label}: a sum off its twin "
+                          f"by {worst:.3e} beyond 1e-5 of its |terms|")
+        hu, hu32, nq = rows * q * es, rows * q * 4, b * n * q * es
+        small = rows * 4 + 4 * b * q * es + 2 * q * 2
+        rec = {"fwd": time_row(
+            f"edge_epilogue_forward {label}", fwd, plain, None,
+            bound((3 + 3 * live) * hu + 2 * hu32 + 5 * nq + small))}
+        rec["bwd"] = time_row(
+            f"edge_epilogue_backward {label}", bwd,
+            unfused_backward(lambda *xs: EE.epilogue_plain(relu, mask_b, *xs),
+                             terms, grad), None,
+            bound((1 + relu) * (1 + live) * hu32 + (7 if select else 4) * hu
+                  + 3 * nq + small))
+        rec["fwd"]["max_abs_err"], rec["bwd"]["max_abs_err"] = fwd_err, bwd_err
+        for key in ("fwd", "bwd"):
+            rec[key]["share"] = rec[key]["bound_ms"] / rec[key]["ms"]
+        if not select:                                  # the transpose, q >= C
+            h, rev = randn(b, 2, n, k, c, dt=dt), randn(b, n, k, c, dt=dt)
+            t_got = EE.edge_transpose_forward(h, rev, mask_b)
+            t_want = EE.transpose_plain(h, rev, mask_b)
+            gt = randn(b, 2, n, k, c)
+            tb = EE.edge_transpose_backward(gt, mask_b, dt)
+            tbw = EE.transpose_backward_plain(gt, mask_b, dt)
+            check(same(t_got, t_want)
+                  and all(same(x, w_) for x, w_ in zip(tb, tbw)),
+                  f"edge transpose C={c} {dt}: not its twin's values")
+            hc, hc32 = rows * c * es, rows * c * 4
+            rec["transpose_fwd"] = time_row(
+                f"edge_transpose_forward C={c} {str(dt)[6:]}",
+                lambda: EE.edge_transpose_forward(h, rev, mask_b),
+                lambda: EE.transpose_plain(h, rev, mask_b), None,
+                bound((1 + live) * hc + 2 * hc32 + rows * 4))
+            rec["transpose_bwd"] = time_row(
+                f"edge_transpose_backward C={c} {str(dt)[6:]}",
+                lambda: EE.edge_transpose_backward(gt, mask_b, dt),
+                unfused_backward(lambda a, r: EE.transpose_plain(a, r, mask_b),
+                                 (h, rev), gt), None,
+                bound((1 + live) * hc32 + 3 * hc + rows * 4))
+            rec["transpose_fwd"]["max_abs_err"] = float((t_got - t_want).abs().max())
+            rec["transpose_bwd"]["max_abs_err"] = max(
+                float((x.float() - w_.float()).abs().max()) for x, w_ in zip(tb, tbw))
+            for key in ("transpose_fwd", "transpose_bwd"):
+                rec[key]["share"] = rec[key]["bound_ms"] / rec[key]["ms"]
+            names.update(r[0] for r in cuda_profile(
+                lambda: (EE.edge_transpose_forward(h, rev, mask_b),
+                         EE.edge_transpose_backward(gt, mask_b, dt)), 5))
+        names.update(r[0] for r in cuda_profile(lambda: (fwd(), bwd()), 5))
+        summary[label] = rec
+    ours = sorted(nm for nm in names if "edge_" in nm)
+    bad = [nm for nm in ours if bucket_of(nm) != "other"]
+    symbols = [sym for sym in REPO_SYMBOLS if sym.startswith("edge_")]
+    print(f"edge epilogue and transpose at {len(cases)} (C, q) cases on the 32^3 "
+          f"b4 graph (live block B {live:.4f}): forward equal to the unfused "
+          f"chain bit for bit, backward within its sums' tolerance, all "
+          f"repeatable; kernels {ours}")
+    check(all(any(sym + "<" in nm or sym + "(" in nm for nm in ours)
+              for sym in symbols) and not bad,
+          f"edge epilogue kernels {ours}: {bad} land in a benchmark bucket "
+          f"other than other, or one of {symbols} did not run")
+    main = summary["C=64 q=64 float32 relu"]
+    return summary, {"edge_epilogue_forward": main["fwd"],
+                     "edge_epilogue_backward": main["bwd"],
+                     "edge_transpose_forward": main["transpose_fwd"],
+                     "edge_transpose_backward": main["transpose_bwd"]}
+
+
 def route_cfg(C, ds, family="shiftinv15", dtype="bfloat16", iters=3, batch=BATCH,
               **model):
     """Phase 17's configurations: GRAPH_CHANNELS, K 14, window 2."""
@@ -1893,7 +2081,9 @@ def profile_step(cfg, dev, dataset, x, y, label, out):
 
 def run_shiftinv15(dev, C, dataset, idx0):
     """Phase 17 (a-e): the 15-op family at full width on every route, its
-    parity checks, and the CLI."""
+    parity checks, and the CLI.  Returns the edge epilogue's kernels line
+    records (check_edge_epilogue) and the direct route's launches a
+    step."""
     from nbody_tpu_torch.cli import eval as cli_eval
     from nbody_tpu_torch.cli import train as cli_train
     from nbody_tpu_torch.data.dataset import split_batch
@@ -1903,7 +2093,9 @@ def run_shiftinv15(dev, C, dataset, idx0):
 
     t_phase = time.perf_counter()
     summary = {}
-    check_15op_kernels(dev, idx0)
+    graph = check_15op_kernels(dev, idx0)
+    summary["edge_epilogue"], epilogue_rec = check_edge_epilogue(dev, graph)
+    del graph
     torch.cuda.empty_cache()
 
     # (c) the direct route through its entry points
@@ -1926,14 +2118,15 @@ def run_shiftinv15(dev, C, dataset, idx0):
     print(f"15-op fit: 5 steps in {fit_s:.2f} s (host clock); losses {losses}; "
           f"launches during fit + evaluate {counts}")
     check(len(losses) == 5 and np.isfinite(losses).all(), "non-finite 15-op loss")
-    check(set(counts) == {"lattice_knn", "neighbor_gather", "neighbor_segment_sum"},
+    check(set(counts) == {"lattice_knn", "neighbor_gather", "neighbor_segment_sum",
+                          *S15_EPILOGUE_LAUNCHES},
           f"the 15-op direct route launched {counts}")
     check(preds.shape == (2, 4, CELLS ** 3, 3) and np.isfinite(preds).all()
           and np.isfinite(errors).all(), f"15-op evaluate cube {preds.shape}")
     check(trainer.model.impl_record.get("impl") == "direct",
           f"15-op route is {trainer.model.impl_record}")
     print(f"15-op evaluate: cube {preds.shape}, errors {errors.tolist()}")
-    one_step_launches(trainer, x, y, S15_STEP_LAUNCHES, "15-op direct")
+    step = one_step_launches(trainer, x, y, S15_STEP_LAUNCHES, "15-op direct")
     del trainer
     torch.cuda.empty_cache()
     batches = minibatches(dataset, dev, 10, BATCH)
@@ -2019,6 +2212,7 @@ def run_shiftinv15(dev, C, dataset, idx0):
                   f"cli.train {extra} did not run its route")
     summary["seconds"] = time.perf_counter() - t_phase
     print(f"shiftinv15 (phase 17 a-e): {json.dumps(summary)}")
+    return epilogue_rec, step
 
 
 def run_graph_options(dev, C, dataset):
@@ -2491,8 +2685,8 @@ def main() -> int:
     from nbody_tpu_torch.data.dataset import Dataset, split_batch
     from nbody_tpu_torch.models.registry import build_model
     from nbody_tpu_torch.ops.kernels import (banded_kernels, block_kernels, build,
-                                             fused_kernels, mask_kernels,
-                                             topk_kernels)
+                                             edge_epilogue, fused_kernels,
+                                             mask_kernels, topk_kernels)
     from nbody_tpu_torch.physics.losses import loss_za
     from nbody_tpu_torch.train.trainer import Trainer
 
@@ -2508,7 +2702,7 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = (topk_kernels.library, banded_kernels.library,
                  block_kernels.library, mask_kernels.library,
-                 fused_kernels.library)
+                 fused_kernels.library, edge_epilogue.library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda load: load(), libraries))
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
@@ -2639,7 +2833,10 @@ def main() -> int:
     # 16. the redshift-chain rollout at full width, cli.rollout
     run_rollout(dev, C)
     # 17. the 15-op family on every route, --remat, the kNN methods
-    run_shiftinv15(dev, C, dataset, idx0)
+    epilogue_rec, s15_step = run_shiftinv15(dev, C, dataset, idx0)
+    rec.update(epilogue_rec)
+    for n in epilogue_rec:
+        counters[n] = s15_step[n]
     run_graph_options(dev, C, dataset)
     # 18. the program's tracing: timeline, counters, samples, spans
     run_tracing(dev, C, dataset)

@@ -27,7 +27,11 @@ on the direct, banded and block routes, and the block-major form
 (``_shift_inv_15op_layer_blocks``) on the masked index and int8/int4
 routes, which keeps edge activations block-major between layers and runs
 exactly one fused scatter ([h_a | masked h_b], 2C wide) and one fused
-gather ([x_col | x_row], 2q wide) through the masks a layer.  Dtypes
+gather ([x_col | x_row], 2q wide) through the masks a layer.  The cube
+form's edge-wise work after its products and gathers (the transpose's
+select, the broadcast stacks, the pooled and diagonal terms, the block
+mask and relu) is one pass each way, ops/kernels/edge_epilogue, and so
+is the transpose before the product where a layer widens.  Dtypes
 follow JAX's promotions step by step: the cube form's f32 graph fields
 (mask_b, deg) promote the edge tensors they touch to f32, and the
 block-major form casts its pool results back to the edge dtype.  With
@@ -52,6 +56,7 @@ from nbody_tpu_torch.ops.banded import (neighbor_gather, neighbor_scatter_add,
 from nbody_tpu_torch.ops.graph_features import neighbor_positions
 from nbody_tpu_torch.ops.kernels import banded_kernels as K
 from nbody_tpu_torch.ops.kernels.banded_kernels import GraphPlan, graph_plan
+from nbody_tpu_torch.ops.kernels.edge_epilogue import edge_epilogue, edge_transpose
 from nbody_tpu_torch.physics.pbc import min_image_diff
 
 # neighbor ids travel through the f32 gather of the reverse-edge search:
@@ -168,17 +173,6 @@ def _with_diag(out: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
     return torch.where(sel, diag[:, None, ..., None, :], out)
 
 
-def _transpose(h: torch.Tensor, g: BlockSymGraph,
-               lookup: ReverseLookup) -> torch.Tensor:
-    """Edge transpose (shiftinv15.py:224-272): an A slot takes its reverse
-    A edge where it exists, else its masked B mirror; a B slot its A
-    mirror."""
-    ha = h[:, 0]
-    mb = g.mask_b[..., None]
-    ta = reverse_edges(ha, lookup) * (1.0 - mb) + h[:, 1] * mb
-    return torch.stack([ta, ha * mb], dim=1)
-
-
 def _row_pool(h: torch.Tensor, g: BlockSymGraph, lattice, plan) -> torch.Tensor:
     """Mean over edges grouped by row id -> (b, N, C): block A sums over K,
     block B scatters its masked values (shiftinv15.py:196-205)."""
@@ -191,14 +185,19 @@ def _row_pool(h: torch.Tensor, g: BlockSymGraph, lattice, plan) -> torch.Tensor:
 def shift_inv_15op_layer(h: torch.Tensor, graph: BlockSymGraph,
                          layer_params: Dict[str, torch.Tensor],
                          is_last: bool = False, lattice=None, plan=None,
-                         lookup: ReverseLookup = None) -> torch.Tensor:
+                         lookup: ReverseLookup = None,
+                         activation: Callable = None) -> torch.Tensor:
     """One 15-op layer in cube form (shiftinv15.py:281-345) on the direct,
     banded and block routes.  h (b, 2, N, K, C) masked block edge
-    features; returns (b, 2, N, K, q), or (b, N, q) pooled over rows if
-    is_last.  plan: the route's plan (ops/banded.route_plan); lookup: the
-    transpose's (reverse_lookup of the cube ids).  Every addition keeps
-    JAX's order and dtype promotion; the diagonal contributions land on
-    the self slots in the same order as JAX's _at_dia adds."""
+    features; returns (b, 2, N, K, q), activated by `activation` unless
+    is_last, or (b, N, q) pooled over rows if is_last.  plan: the route's
+    plan (ops/banded.route_plan); lookup: the transpose's (reverse_lookup
+    of the cube ids).  Every addition keeps JAX's order and dtype
+    promotion; the diagonal contributions land on the self slots in the
+    order of JAX's _at_dia adds.  The edge-wise work after the products
+    and the gathers is one pass (ops/kernels/edge_epilogue: on a card one
+    kernel each way, relu included where `activation` is torch.relu), and
+    so is the transpose before the product where the layer widens."""
     w = layer_params["W"]        # (15, C, q)
     bias = layer_params["B"]     # (2, q): [diag, global]
     dt = h.dtype
@@ -224,35 +223,30 @@ def shift_inv_15op_layer(h: torch.Tensor, graph: BlockSymGraph,
            + torch.sum(hb_m, dim=(1, 2))) / live[:, None]
     h_p = torch.mean(h_d, dim=1)                 # (b, C)
 
-    out = mm(h, w[0])                                            # 1 identity
+    p0 = mm(h, w[0])                                             # 1 identity
     # ops 4, 8, 14 share one col-broadcast gather, 5, 7, 15 one row one
     x_col = mm(h_r, w[3]) + mm(h_c, w[7]) + mm(h_d, w[13])
     x_row = mm(h_r, w[4]) + mm(h_c, w[6]) + mm(h_d, w[14])
-    if w.shape[-1] < w.shape[-2]:                                # 2 transpose
-        out = out + _transpose(mm(h, w[1]), g, lookup)
-    else:
-        out = out + mm(_transpose(h, g, lookup), w[1])
+    if w.shape[-1] < w.shape[-2]:           # 2 transpose, after the product
+        t = mm(h, w[1])
+        rev = reverse_edges(t[:, 0], lookup)
+    else:                                   # before it
+        t = mm(edge_transpose(h, reverse_edges(h[:, 0], lookup), g.mask_b),
+               w[1])
+        rev = None
     g_col = neighbor_gather(x_col, g.idx, lattice, None, plan)
-    out = out + torch.stack([g_col, x_col[:, :, None, :].expand_as(g_col)], 1)
     g_row = neighbor_gather(x_row, g.idx, lattice, None, plan)
-    out = out + torch.stack([x_row[:, :, None, :].expand_as(g_row), g_row], 1)
-    a9 = mm(h_a, w[9])[:, None, None, None, :]                   # 10 all->all
-    p11 = mm(h_p, w[11])[:, None, None, None, :]                 # 12 diag->all
-    b1 = bias[1]
-    diag = out[:, 0, :, 0, :]
-    diag = diag + mm(h_d, w[2])                                  # 3 diag->diag
-    diag = diag + mm(h_r, w[5])                                  # 6 rows->diag
-    diag = diag + mm(h_c, w[8])                                  # 9 cols->diag
-    diag = diag + a9[:, 0, 0]
-    diag = diag + mm(h_a, w[10])[:, None, :]                     # 11
-    diag = diag + p11[:, 0, 0]
-    diag = diag + mm(h_p, w[12])[:, None, :]                     # 13
-    diag = diag + bias[0] + b1
-    out = _with_diag(out + a9 + p11 + b1, diag)
-    mask = torch.stack([torch.ones_like(g.mask_b), g.mask_b], dim=1)[..., None]
-    out = out * mask
+    relu = activation is torch.relu and not is_last
+    out = edge_epilogue(
+        p0, t, rev, g_col, g_row, x_col, x_row,
+        mm(h_d, w[2]), mm(h_r, w[5]), mm(h_c, w[8]),             # 3, 6, 9
+        mm(h_a, w[9]), mm(h_a, w[10]),                           # 10, 11
+        mm(h_p, w[11]), mm(h_p, w[12]),                          # 12, 13
+        bias[0], bias[1], g.mask_b, relu=relu)
     if is_last:
         return _row_pool(out, g, lattice, plan)
+    if activation is not None and not relu:
+        out = activation(out)
     return out
 
 
@@ -380,11 +374,9 @@ def shiftinv15_network(params: List[Dict[str, torch.Tensor]],
     layer = remat_layer(shift_inv_15op_layer, remat)
     h = edges
     for i, layer_params in enumerate(params):
-        is_last = i == len(params) - 1
-        h = layer(h, graph, layer_params, is_last=is_last, lattice=lattice,
-                  plan=plan, lookup=lookup)
-        if not is_last:
-            h = activation(h)
+        h = layer(h, graph, layer_params, is_last=i == len(params) - 1,
+                  lattice=lattice, plan=plan, lookup=lookup,
+                  activation=activation)
         h = tracing.probe(h, f"layer{i}")
     return h
 

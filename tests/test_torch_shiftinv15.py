@@ -21,6 +21,12 @@ params_from_jax.
   block routes; bf16 loss rtol 3e-2 and gradient cosine > 0.998
   (tests/test_grad_parity.py:86-104) on the direct and index routes.
 - fit = fit_scan, the train CLI, and one rollout hop.
+- The fused edge epilogue (ops/kernels/edge_epilogue, its plain twins on
+  the CPU): the layer bit-equal to the composition it replaced in f32
+  and bf16, both transpose branches, is_last, relu fused and another
+  activation after it, with gradients at f32 tolerance; gradcheck of the
+  epilogue's and the transpose's autograd Functions in float64; the
+  launch counters a train step moves.
 """
 
 import os
@@ -44,12 +50,15 @@ from nbody_tpu.physics.losses import loss_za as j_loss
 from nbody_tpu.train import rollout as j_rollout
 
 from nbody_tpu_torch import config as C
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.cli import train as cli_train
 from nbody_tpu_torch.data.dataset import Dataset
 from nbody_tpu_torch.models import shiftinv15 as T15
 from nbody_tpu_torch.models.base import params_from_jax
 from nbody_tpu_torch.models.registry import build_model
 from nbody_tpu_torch.ops import blocked
+from nbody_tpu_torch.ops.banded import neighbor_gather, neighbor_scatter_add
+from nbody_tpu_torch.ops.kernels import edge_epilogue as EE
 from nbody_tpu_torch.physics.losses import loss_za
 from nbody_tpu_torch.train.rollout import make_rollout, stack_params
 from nbody_tpu_torch.train.trainer import Trainer
@@ -418,3 +427,239 @@ def test_rollout_hop_matches_jax():
     assert traj.shape == (1, 2, CELLS ** 3, 3)
     np.testing.assert_allclose(traj.numpy(), np.asarray(jtraj), rtol=1e-4,
                                atol=1e-5)
+
+
+def _composed_layer(h, g, layer_params, is_last):
+    """The cube-form layer as it was composed before its edge epilogue was
+    fused (one PyTorch pass an operation): the fused layer's oracle."""
+    w, bias, dt = layer_params["W"], layer_params["B"], h.dtype
+    lookup = T15.reverse_lookup(g)
+
+    def mm(x, wi):
+        return T15._mm(x, wi, dt)
+
+    def transpose(x):
+        xa, mbx = x[:, 0], g.mask_b[..., None]
+        ta = T15.reverse_edges(xa, lookup) * (1.0 - mbx) + x[:, 1] * mbx
+        return torch.stack([ta, xa * mbx], dim=1)
+
+    c_in = h.shape[-1]
+    mb = g.mask_b[..., None]
+    h_d = h[:, 0, :, 0, :]
+    hb_m = h[:, 1] * mb
+    s2 = neighbor_scatter_add(torch.cat([h[:, 0].to(hb_m.dtype), hb_m], dim=-1),
+                              g.idx)
+    sum_a = torch.sum(h[:, 0], dim=2)
+    h_r = (s2[..., :c_in] + torch.sum(hb_m, dim=2)) / g.deg[..., None]
+    h_c = (sum_a + s2[..., c_in:]) / g.deg[..., None]
+    live = torch.sum(g.deg, dim=-1)
+    h_a = (torch.sum(h[:, 0], dim=(1, 2)) + torch.sum(hb_m, dim=(1, 2))) / live[:, None]
+    h_p = torch.mean(h_d, dim=1)
+    out = mm(h, w[0])
+    x_col = mm(h_r, w[3]) + mm(h_c, w[7]) + mm(h_d, w[13])
+    x_row = mm(h_r, w[4]) + mm(h_c, w[6]) + mm(h_d, w[14])
+    if w.shape[-1] < w.shape[-2]:
+        out = out + transpose(mm(h, w[1]))
+    else:
+        out = out + mm(transpose(h), w[1])
+    g_col = neighbor_gather(x_col, g.idx)
+    out = out + torch.stack([g_col, x_col[:, :, None, :].expand_as(g_col)], 1)
+    g_row = neighbor_gather(x_row, g.idx)
+    out = out + torch.stack([x_row[:, :, None, :].expand_as(g_row), g_row], 1)
+    a9 = mm(h_a, w[9])[:, None, None, None, :]
+    p11 = mm(h_p, w[11])[:, None, None, None, :]
+    b1 = bias[1]
+    diag = out[:, 0, :, 0, :]
+    diag = diag + mm(h_d, w[2])
+    diag = diag + mm(h_r, w[5])
+    diag = diag + mm(h_c, w[8])
+    diag = diag + a9[:, 0, 0]
+    diag = diag + mm(h_a, w[10])[:, None, :]
+    diag = diag + p11[:, 0, 0]
+    diag = diag + mm(h_p, w[12])[:, None, :]
+    diag = diag + bias[0] + b1
+    sel = torch.zeros(out.shape[1:-1] + (1,), dtype=torch.bool)
+    sel[0, :, 0, :] = True
+    out = torch.where(sel, diag[:, None, :, None, :], out + a9 + p11 + b1)
+    out = out * torch.stack([torch.ones_like(g.mask_b), g.mask_b], dim=1)[..., None]
+    if is_last:
+        sums = torch.sum(out[:, 0], dim=2) + neighbor_scatter_add(
+            out[:, 1] * g.mask_b[..., None], g.idx)
+        return sums / g.deg[..., None]
+    return out
+
+
+@pytest.mark.parametrize("c_in,q,is_last,activation,dtype", [
+    (5, 8, False, torch.relu, "float32"),     # q >= C: transpose, then W
+    (8, 5, False, torch.relu, "float32"),     # q < C: W, then transpose
+    (5, 8, False, torch.tanh, "float32"),          # not relu: applied after
+    (8, 5, False, torch.tanh, "float32"),
+    (5, 8, True, torch.relu, "float32"),      # the last layer: row pool
+    (8, 3, True, torch.relu, "float32"),
+    (3, 8, False, torch.relu, "bfloat16"),    # layer 0 of a bf16 network
+])
+def test_fused_layer_equals_composition(c_in, q, is_last, activation, dtype):
+    """The layer with its fused edge epilogue against the composition it
+    replaced (activation after it): the forward bit-equal, the gradients
+    of h, W and B within f32 tolerance (the fused backward sums in
+    another order)."""
+    idx = _lattice_idx(seed=7)
+    _, g = _graphs(idx)
+    rng = np.random.default_rng(c_in * 11 + q)
+    mask = np.stack([np.ones_like(g.mask_b.numpy()), g.mask_b.numpy()], 1)
+    h0 = torch.from_numpy(
+        (rng.normal(size=(2, 2, CELLS ** 3, K, c_in)) * mask[..., None]).astype(np.float32))
+    p0 = {"W": torch.from_numpy((rng.normal(size=(15, c_in, q)) * 0.3).astype(np.float32)),
+          "B": torch.from_numpy(rng.normal(size=(2, q)).astype(np.float32))}
+    r = torch.from_numpy(rng.normal(size=(2, CELLS ** 3, q) if is_last
+                                    else (2, 2, CELLS ** 3, K, q)).astype(np.float32))
+    dt = getattr(torch, dtype)
+    results = []
+    for fused in (True, False):
+        h = h0.to(dt).requires_grad_()
+        params = {k: v.clone().requires_grad_() for k, v in p0.items()}
+        layer = {k: v.to(dt) for k, v in params.items()}
+        if fused:
+            out = T15.shift_inv_15op_layer(h, g, layer, is_last=is_last,
+                                           activation=activation)
+        else:
+            out = _composed_layer(h, g, layer, is_last)
+            out = out if is_last else activation(out)
+        (out.float() * r).sum().backward()
+        results.append((out.detach(), h.grad, params["W"].grad, params["B"].grad))
+    (out, *grads), (want, *want_grads) = results
+    assert out.dtype == want.dtype and out.shape == want.shape
+    assert torch.equal(out, want)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for got_g, want_g in zip(grads, want_grads):
+        scale = float(want_g.abs().max())
+        np.testing.assert_allclose(got_g.float().numpy(), want_g.float().numpy(),
+                                   rtol=tol, atol=tol * scale)
+
+
+def _epilogue_inputs(select, seed, b=2, n=6, k=3, q=2, c=None):
+    """float64 operands of the epilogue at a tiny cube, and a 0/1 mask."""
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, dtype=torch.float64,
+                           requires_grad=True)
+
+    mask_b = (torch.rand(b, n, k, generator=gen) < 0.4).to(torch.float64)
+    mask_b[..., 0] = 0.0
+    return mask_b, (rnd(b, 2, n, k, q), rnd(b, 2, n, k, q),
+                    rnd(b, n, k, q) if select else None,
+                    rnd(b, n, k, q), rnd(b, n, k, q), rnd(b, n, q), rnd(b, n, q),
+                    rnd(b, n, q), rnd(b, n, q), rnd(b, n, q), rnd(b, q), rnd(b, q),
+                    rnd(b, q), rnd(b, q), rnd(q), rnd(q))
+
+
+@pytest.mark.parametrize("select,relu", [(False, False), (True, False),
+                                         (False, True), (True, True)])
+def test_epilogue_function_gradcheck(select, relu):
+    """gradcheck of the epilogue's autograd Function (its plain backward
+    twin) in float64, both transpose branches, with and without relu."""
+    mask_b, terms = _epilogue_inputs(select, seed=3 + 2 * select + relu)
+    live = [x for x in terms if x is not None]
+
+    def f(*xs):
+        it = iter(xs)
+        full = [None if x is None else next(it) for x in terms]
+        return EE.EdgeEpilogue.apply(relu, mask_b, *full)
+
+    assert torch.autograd.gradcheck(f, live, eps=1e-6, atol=1e-7)
+
+
+def test_transpose_function_gradcheck():
+    """gradcheck of the edge transpose's autograd Function in float64."""
+    mask_b, terms = _epilogue_inputs(False, seed=11)
+    h, rev = terms[0], terms[3]
+    assert torch.autograd.gradcheck(
+        lambda a, r: EE.EdgeTranspose.apply(a, r, mask_b), (h, rev),
+        eps=1e-6, atol=1e-7)
+
+
+def _operands(q=8, dt=torch.float32, mask_dt=torch.float32, odd=None,
+              bias_dt=torch.bfloat16):
+    """(mask_b, tensors, biases) of the kernels' check at width q, one
+    tensor of `odd` dtype where given."""
+    mask_b = torch.ones(1, 2, 3, dtype=mask_dt)
+    tensors = [torch.zeros(1, 2, 2, 3, q, dtype=dt), torch.zeros(1, 2, q, dtype=dt)]
+    if odd is not None:
+        tensors.append(torch.zeros(1, q, dtype=odd))
+    return mask_b, tensors, [torch.zeros(q, dtype=bias_dt)] * 2
+
+
+def test_kernel_check_takes_the_model_operands():
+    """The kernels' check passes the operands the port hands them: f32 or
+    bf16 tensors of one dtype with f32 or bf16 biases, an f32 mask."""
+    for dt in (torch.float32, torch.bfloat16):
+        for bias_dt in (torch.float32, torch.bfloat16):
+            mask_b, tensors, biases = _operands(64, dt, bias_dt=bias_dt)
+            EE._check("edge_epilogue", 64, mask_b, tensors, biases)
+
+
+@pytest.mark.parametrize("kw,width,match", [
+    ({"dt": torch.float64}, 8, "one dtype"),
+    ({"odd": torch.bfloat16}, 8, "one dtype"),
+    ({"mask_dt": torch.bfloat16}, 8, "float32 mask"),
+    ({"bias_dt": torch.float16}, 8, "biases"),
+    ({}, 257, "widths up to"),
+])
+def test_kernel_check_refuses(kw, width, match):
+    """On a card the wrappers raise ValueError for operands their kernels
+    do not take, as the port's other kernel wrappers do, and run no
+    other path."""
+    mask_b, tensors, biases = _operands(width, **kw)
+    with pytest.raises(ValueError, match=match):
+        EE._check("edge_epilogue", width, mask_b, tensors, biases)
+
+
+def _count_wrappers(monkeypatch):
+    """Count each call of the epilogue's and the transpose's wrappers as
+    they count a kernel launch on the card (on the CPU they take their
+    plain twins)."""
+    for name in ("edge_epilogue_forward", "edge_epilogue_backward",
+                 "edge_transpose_forward", "edge_transpose_backward"):
+        def counted(*args, _orig=getattr(EE, name), _name=name):
+            tracing.count(f"launch.{_name}")
+            return _orig(*args)
+        monkeypatch.setattr(EE, name, counted)
+
+
+@pytest.mark.parametrize("channels,want", [
+    ((3, 8, 6, 3), {"edge_epilogue_forward": 3, "edge_epilogue_backward": 3,
+                    "edge_transpose_forward": 1}),
+    ((3, 6, 8, 3), {"edge_epilogue_forward": 3, "edge_epilogue_backward": 3,
+                    "edge_transpose_forward": 2, "edge_transpose_backward": 1}),
+])
+def test_train_step_launches_the_epilogue(channels, want, monkeypatch):
+    """One eager train step on the direct route moves
+    launch.edge_epilogue_forward and its backward once a layer, and the
+    transpose's once a widening layer (its backward not in layer 0, whose
+    input needs no gradient); the B and C calls are the layer's as
+    before."""
+    from nbody_tpu_torch.ops.kernels import banded_kernels as BK
+    from nbody_tpu_torch.train.trainer import make_optimizer, make_train_step
+    _count_wrappers(monkeypatch)
+    calls = {"gather": 0, "scatter": 0}
+    for attr, key in (("neighbor_gather", "gather"), ("neighbor_segment_sum", "scatter")):
+        def counted(*args, _orig=getattr(BK, attr), _key=key):
+            calls[_key] += 1
+            return _orig(*args)
+        monkeypatch.setattr(BK, attr, counted)
+    _, _, tmodel = _pair("bfloat16", channels=channels)
+    step = make_train_step(tmodel, make_optimizer(tmodel, 1e-3))
+    x_in, y = _batch()
+    before = tracing.counters()
+    step(torch.from_numpy(x_in), torch.from_numpy(y))
+    moved = {k[len("launch."):]: v for k, v in tracing.delta(before).items()
+             if k.startswith("launch.")}
+    assert moved == want
+    layers = len(channels) - 1
+    # B: the id gather, the features', 3 a layer forward, a pool-scatter
+    # gradient a layer after the first and the row pool's; C: the degree,
+    # a pool scatter a layer, the row pool, 2 broadcast gradients a layer,
+    # a lookup gradient a layer after the first
+    assert calls == {"gather": 2 + 3 * layers + (layers - 1) + 1,
+                     "scatter": 1 + layers + 1 + 2 * layers + (layers - 1)}
