@@ -352,13 +352,17 @@ def exact_knn_host(pos_norm: np.ndarray, k: int) -> np.ndarray:
     (b, N, k) int64 ids, by scipy's cKDTree with boxsize 1.  Stands in
     for the JAX package's sklearn ghost-padding search (registry.py:157-178;
     sklearn is not a dependency of the port); both are exact, so the
-    tie-insensitive per-row distance sums agree."""
+    tie-insensitive per-row distance sums agree.  The span
+    ``coverage.host_knn`` covers the search and ``coverage.host_rows``
+    counts its b x N rows (tracing.py)."""
     from scipy.spatial import cKDTree
     out = []
-    for p in np.asarray(pos_norm, np.float64):
-        p = np.where(p >= 1.0, 0.0, p)    # f32 mod can round up to 1.0
-        _, ids = cKDTree(p, boxsize=1.0).query(p, k=k, workers=-1)
-        out.append(np.reshape(ids, (p.shape[0], k)))
+    with tracing.span("coverage.host_knn"):
+        for p in np.asarray(pos_norm, np.float64):
+            p = np.where(p >= 1.0, 0.0, p)    # f32 mod can round up to 1.0
+            _, ids = cKDTree(p, boxsize=1.0).query(p, k=k, workers=-1)
+            out.append(np.reshape(ids, (p.shape[0], k)))
+            tracing.count("coverage.host_rows", p.shape[0])
     return np.stack(out)
 
 

@@ -33,7 +33,9 @@ integer masks (the int8/int4 route); the bf16/f32 one-hot masks of JAX's
 einsum route are built here only as kernel J's input (the route itself
 runs the direct kernels in the port).  The in-degree counts of the index
 and block routes are read off the plan (``plan_counts``), with no kernel
-launch.
+launch.  The layout work (block_patches, patches_fold,
+edges_cube_to_blocks, nodes_blocks_to_cube) is marked apart, forward and
+backward, in an open step timeline (tracing.layout: segments ``*.layout``).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.ops.kernels import block_kernels as BK
 from nbody_tpu_torch.ops.kernels.block_kernels import BlockPlan
 from nbody_tpu_torch.ops.kernels.idx_kernels import idx_dot_gather, idx_dot_scatter
@@ -198,7 +201,8 @@ def block_patches(values: torch.Tensor, cells: int, window: int,
     (lx, ly, lz) order.  The windows are strided views (unfold) of the
     padded cube; the final reshape is the one copy.  Its gradient is
     patches_fold (an autograd pair, so autograd records no slice ops)."""
-    return _BlockPatches.apply(values, cells, window, tuple(core))
+    return tracing.layout("block_patches", _BlockPatches.apply, values, cells,
+                          window, tuple(core))
 
 
 def patches_fold(acc: torch.Tensor, cells: int, window: int,
@@ -208,7 +212,8 @@ def patches_fold(acc: torch.Tensor, cells: int, window: int,
     strided slice-adds into the padded cube, then the pad rings folded
     back axis by axis), so f32 sums are bit-equal to it.  Its gradient is
     block_patches."""
-    return _PatchesFold.apply(acc, cells, window, tuple(core))
+    return tracing.layout("patches_fold", _PatchesFold.apply, acc, cells,
+                          window, tuple(core))
 
 
 def edge_block_positions(idx: torch.Tensor, cells: int, window: int,
@@ -424,19 +429,26 @@ def masked_counts(masks, cells: int, window: int,
     return out + 1 if self_slot0 else out
 
 
-def edges_cube_to_blocks(edges: torch.Tensor, cells: int,
-                         core: Sequence[int] = MASKED_CORE) -> torch.Tensor:
-    """(B, N, K, C) -> (B, NB, R, K, C) block-major edge activations."""
+def _edges_cube_to_blocks(edges: torch.Tensor, cells: int,
+                          core: Core) -> torch.Tensor:
     b, n, k, c = edges.shape
     bx, by, bz = core
     v = cube_to_blocks(edges.reshape(b, n, k * c), cells, core)
     return v.reshape(b, -1, bx * by * bz, k, c)
 
 
+def edges_cube_to_blocks(edges: torch.Tensor, cells: int,
+                         core: Sequence[int] = MASKED_CORE) -> torch.Tensor:
+    """(B, N, K, C) -> (B, NB, R, K, C) block-major edge activations."""
+    return tracing.layout("edges_cube_to_blocks", _edges_cube_to_blocks, edges,
+                          cells, tuple(core))
+
+
 def nodes_blocks_to_cube(x: torch.Tensor, cells: int,
                          core: Sequence[int] = MASKED_CORE) -> torch.Tensor:
     """(B, NB, R, C) block-major node field -> (B, N, C)."""
-    return blocks_to_cube(x, cells, core)
+    return tracing.layout("nodes_blocks_to_cube", blocks_to_cube, x, cells,
+                          tuple(core))
 
 
 def block_gather(values: torch.Tensor, plan: BlockPlan, cells: int,

@@ -30,6 +30,13 @@ The step timeline
     to the step exactly, while the split between adjacent layers is
     approximate where autograd interleaves weight and input gradients.
 
+    ``layout(name, fn, x, ...)`` runs ``fn(x, ...)``, layout work (a
+    copy of x into another order), between two such probes: the forward
+    segment that closes on it is ``<name><i>.layout`` and the backward's
+    ``<name><i>.backward.layout`` (i counts the step's calls of `name`,
+    so every mark of a step has its own name); the work before each is
+    ``<name><i>`` and ``<name><i>.backward``.
+
     A timeline is open only inside ``timeline(device, always)``: the
     train step opens one always while TrainScan captures the step's CUDA
     graph (every replay then records its marks again) and, on an eager
@@ -39,11 +46,13 @@ The step timeline
 Counters
     ``count(name, n)`` adds to one registry: ``launch.<wrapper>`` (the
     CUDA kernel wrappers), ``loss.particles`` (batch x particles of every
-    prediction that reaches physics.losses.loss_za), ``graph.captures``,
-    ``graph.replays`` and ``timeline.marks``.  TrainScan takes back what
-    a capture counted (a capture runs nothing on the card), keeps it as
-    the graph's counts and adds them at every replay, so every counter
-    counts work the card did, eagerly or replayed.  ``counters()`` is a
+    prediction that reaches physics.losses.loss_za), ``coverage.host_rows``
+    (the rows the coverage check's host k-d tree searched),
+    ``graph.captures``, ``graph.replays`` and ``timeline.marks``.
+    TrainScan takes back what a capture counted (a capture runs nothing on
+    the card), keeps it as the graph's counts and adds them at every
+    replay, so every counter counts work the card did, eagerly or
+    replayed.  ``counters()`` is a
     snapshot, ``delta(before)`` the change since one.
 
 Samples
@@ -88,6 +97,7 @@ class Timeline:
         self.cuda = torch.device(device).type == "cuda"
         self.names: List[str] = []
         self._marks: list = []
+        self._calls: Dict[str, int] = {}
 
     def mark(self, name: str):
         if self.cuda:
@@ -98,6 +108,12 @@ class Timeline:
         self.names.append(name)
         self._marks.append(ev)
         count("timeline.marks")
+
+    def tag(self, name: str) -> str:
+        """`name` with the count of its earlier tags in this step."""
+        i = self._calls.get(name, 0)
+        self._calls[name] = i + 1
+        return f"{name}{i}"
 
     def segments_ms(self) -> Dict[str, float]:
         """{mark: ms since the previous mark} for every mark after the
@@ -136,15 +152,15 @@ def mark(name: str):
 
 class _Probe(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, tl, name):
-        ctx.tl, ctx.name = tl, name
+    def forward(ctx, h, tl, name, back):
+        ctx.tl, ctx.back = tl, back
         tl.mark(name)
         return h.view_as(h)
 
     @staticmethod
     def backward(ctx, grad):
-        ctx.tl.mark(ctx.name + ".backward")
-        return grad, None, None
+        ctx.tl.mark(ctx.back)
+        return grad, None, None, None
 
 
 def probe(h: torch.Tensor, name: str) -> torch.Tensor:
@@ -154,7 +170,19 @@ def probe(h: torch.Tensor, name: str) -> torch.Tensor:
     tl = _open
     if tl is None:
         return h
-    return _Probe.apply(h, tl, name)
+    return _Probe.apply(h, tl, name, name + ".backward")
+
+
+def layout(name: str, fn, x: torch.Tensor, *args):
+    """fn(x, *args), layout work, with its forward and backward marked
+    apart in the open timeline (the module's note); fn(x, *args) alone,
+    with no autograd node, where none is open."""
+    tl = _open
+    if tl is None:
+        return fn(x, *args)
+    tag = tl.tag(name)
+    x = _Probe.apply(x, tl, tag, tag + ".backward.layout")
+    return _Probe.apply(fn(x, *args), tl, tag + ".layout", tag + ".backward")
 
 
 def count(name: str, n: int = 1):

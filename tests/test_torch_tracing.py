@@ -14,6 +14,7 @@ graph's counts added at each replay (chip_smoke.py phase 18).
 """
 
 import os
+import re
 import sys
 import time
 import types
@@ -80,12 +81,23 @@ def _step_marks(layers=LAYERS):
             + ["backward", "adam"])
 
 
+# the layout work ops/blocked.py marks (tracing.layout)
+LAYOUT = re.compile(r"^(block_patches|patches_fold|edges_cube_to_blocks|"
+                    r"nodes_blocks_to_cube)\d+(\.backward)?(\.layout)?$")
+
+
+def _without_layout(names):
+    return [n for n in names if not LAYOUT.match(n)]
+
+
 @pytest.mark.parametrize("family,route", [
     ("shiftinv", "direct"), ("shiftinv15", "direct"),
     ("shiftinv", "index"), ("shiftinv15", "block")])
 def test_step_timeline_names_order_and_sum(dataset, family, route):
     """Under a profiler an eager step's timeline holds every mark once, in
-    stream order, its segments non-negative and summing to the step."""
+    stream order, its segments non-negative and summing to the step; the
+    masked and block routes' layout marks besides (the direct route has
+    none)."""
     model = build_model(_cfg(family, **ROUTES[route]).model, box=dataset.box,
                         device="cpu")
     step = make_train_step(model, make_optimizer(model, 1e-3))
@@ -97,9 +109,11 @@ def test_step_timeline_names_order_and_sum(dataset, family, route):
     if route != "direct":
         assert model.impl_record["impl"] in ("masked", "block")
     tl = step.timeline
-    assert tl is not None and tl.names == _step_marks()
+    assert tl is not None and _without_layout(tl.names) == _step_marks()
+    assert (tl.names == _step_marks()) == (route == "direct")
+    assert len(set(tl.names)) == len(tl.names)
     seg = tl.segments_ms()
-    assert list(seg) == _step_marks()[1:]
+    assert list(seg) == tl.names[1:]
     assert all(v >= 0.0 for v in seg.values())
     total = sum(seg.values())
     assert 0.5 * 1e3 * wall <= total <= 1e3 * wall
@@ -172,6 +186,106 @@ def test_remat_marks_each_layer_once(dataset, family):
     with _cpu_profile():
         step(*_batch(dataset))
     assert step.timeline.names == _step_marks()
+
+
+def _layout_forward(layers):
+    """The forward marks of a 4-op (and velocity) step on the index route:
+    the features' gather, the edges into block-major order, the in-degree
+    fold, each layer's fold and patches, the output back to the cube."""
+    def pair(name):
+        return [name, name + ".layout"]
+    names = (["start", "knn", "plan"] + pair("block_patches0") + ["features"]
+             + pair("edges_cube_to_blocks0") + pair("patches_fold0"))
+    for i in range(layers):
+        names += pair(f"patches_fold{i + 1}") + pair(f"block_patches{i + 1}") + [f"layer{i}"]
+    return names + pair("nodes_blocks_to_cube0") + ["loss"]
+
+
+VEL_CHANNELS = (9, 8, 4, 6)
+
+
+@pytest.mark.parametrize("family", ["shiftinv", "shiftinv_vel", "shiftinv15"])
+def test_layout_marks_in_order(family):
+    """On the index route a profiled step marks each layout call on both
+    sides, forward (``X`` then ``X.layout``) and backward (``X.backward``
+    then ``X.backward.layout``), every name once; the 4-op forward (the
+    velocity model's too) in the order of its calls; layout_ms.train
+    reads the sum of the .layout segments."""
+    velocity = family == "shiftinv_vel"
+    cfg = _cfg(family, dtype="bfloat16", mask_dtype="index")
+    if velocity:
+        cfg = C.Config(data=C.DataConfig(**{**vars(cfg.data), "include_velocity": True}),
+                       model=C.ModelConfig(**{**vars(cfg.model), "channels": VEL_CHANNELS}),
+                       train=cfg.train)
+    ds = Dataset(cfg.data)
+    model = build_model(cfg.model, box=ds.box, device="cpu")
+    step = make_train_step(model, make_optimizer(model, 1e-3))
+    x, y = split_batch(torch.as_tensor(ds.X_train[:BATCH]), 9 if velocity else 6)
+    with _cpu_profile():
+        step(x, y)
+    names = step.timeline.names
+    assert model.impl_record["impl"] == "masked"
+    assert len(set(names)) == len(names) and _without_layout(names) == _step_marks()
+    loss_at = names.index("loss")
+    if family != "shiftinv15":
+        assert names[:loss_at + 1] == _layout_forward(LAYERS)
+    tags = [n for n in names if LAYOUT.match(n) and not n.endswith((".layout", ".backward"))]
+    assert tags and all(names[names.index(t) + 1] == t + ".layout" for t in tags)
+    back = [n[:-len(".backward")] for n in names[loss_at:] if n.endswith(".backward")
+            and LAYOUT.match(n)]
+    assert back and set(back) <= set(tags)
+    assert all(names[names.index(t + ".backward") + 1] == t + ".backward.layout"
+               for t in back)
+    seg = step.timeline.segments_ms()
+    want = sum(v for k, v in seg.items() if k.endswith(".layout"))
+    store = [{"steps": 1, "device_ms": seg, "counts": {}}]
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(tracing, "samples", lambda: store)
+        assert _reader("layout_ms.train").read(_view(units=1)) == pytest.approx(want)
+
+
+def test_layout_adds_no_node_without_profiler(dataset, monkeypatch):
+    """With no profiler an index-route step marks nothing, and its
+    autograd graph has exactly the nodes it has with the layout marks taken
+    out; an open timeline adds two nodes a layout call that has a
+    gradient."""
+    model = build_model(_cfg(dtype="bfloat16", mask_dtype="index").model,
+                        box=dataset.box, device="cpu")
+    x, y = _batch(dataset)
+    before = tracing.counters()
+    plain = _nodes(loss_za(model(x), y))
+    assert "timeline.marks" not in tracing.delta(before)
+    assert not any("Probe" in f.name() for f in plain)
+    with monkeypatch.context() as m:
+        m.setattr(tracing, "layout", lambda name, fn, v, *args: fn(v, *args))
+        assert len(_nodes(loss_za(model(x), y))) == len(plain)
+    with tracing.timeline("cpu", always=True):
+        traced = _nodes(loss_za(model(x), y))
+    # at 3-8-8-3 layer 0 pools the features, which need no gradient: the
+    # pools of layers 1 and 2 and the output's move to the cube have one
+    with_grad = ["patches_fold2", "block_patches2", "patches_fold3",
+                 "block_patches3", "nodes_blocks_to_cube0"]
+    assert len(traced) == len(plain) + LAYERS + 2 * len(with_grad)
+
+
+def test_host_knn_span_and_rows(dataset, monkeypatch):
+    """Above EXACT_KNN_MAX_PARTICLES the coverage check's host k-d tree
+    counts the b x N rows it searched as coverage.host_rows, and under a
+    profiler the search is the span coverage.host_knn."""
+    from nbody_tpu_torch.models import registry
+    monkeypatch.setattr(registry, "EXACT_KNN_MAX_PARTICLES", N - 1)
+    cfg = _cfg().model
+    x, _ = _batch(dataset)
+    before = tracing.counters()
+    with _cpu_profile() as prof:
+        v = registry.coverage_violations(cfg, dataset.box, x)
+    assert v == 0
+    assert tracing.delta(before).get("coverage.host_rows") == BATCH * N
+    assert "coverage.host_knn" in _event_names(prof)
+    monkeypatch.setattr(registry, "EXACT_KNN_MAX_PARTICLES", N)
+    before = tracing.counters()
+    registry.coverage_violations(cfg, dataset.box, x)
+    assert "coverage.host_rows" not in tracing.delta(before)
 
 
 def _counting_gather(monkeypatch):
