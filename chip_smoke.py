@@ -22,7 +22,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
      32^3 cubes), Trainer with the coverage guard, 5 bf16 fit steps and
      evaluate on the test split, counting kernel launches; then one train
      step alone, which must launch lattice_knn once, the segment sum 11
-     times and topk_min never; then time the train step and read the peak
+     times, the 4-op epilogue's forward and backward 6 times each and
+     topk_min never; then time the train step and read the peak
      device memory;
   5. one f32 forward + loss of the same params and cube on the card and on
      the CPU (plain versions) must agree to rtol 1e-4;
@@ -42,8 +43,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (the host k-d tree search), 4 bf16 fit steps at batch 1 on
      --mask_dtype index and evaluate, counting launches (D and E run, B
      and C do not); one train step must launch lattice_knn once, D 12
-     times, E 11 times and nothing else; step time and peak memory, also
-     for core (8,8,8);
+     times, E 11 times, the 4-op epilogue's forward and backward 6 times
+     each (as on every 4-op route below) and nothing else; step time and
+     peak memory, also for core (8,8,8);
   8. the --impl block route at 32^3 b4: 3 bf16 fit steps on F and G; one
      train step must launch lattice_knn once, F 12 times, G 11 times and
      nothing else;
@@ -115,8 +117,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      lin_chain[0] == lin_reset[0], then the same at window 2 where every
      pair's exact guard lets it; one make_rollout call must launch
      exactly lattice_knn 1, the gather 7 and the segment sum 6 times a
-     hop; the same stacked f32 params and x0 (32^3 b2) on the card and
-     on the CPU, per-hop MSE within rtol 1e-4 and equal per-hop coverage
+     hop, and the epilogue's forward 6; the same stacked f32 params and
+     x0 (32^3 b2) on the card and on the CPU, per-hop MSE within rtol 1e-4
+     and equal per-hop coverage
      counts; ms a hop by CUDA events, idle share under torch.profiler and
      peak memory;
  17. the 15-op family (shiftinv15, GRAPH_CHANNELS, 32^3 b4, K 14, window
@@ -157,8 +160,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (STEP_LAUNCHES) and loss.particles by 10 b N; the replayed timeline
      sums to within 5 % of a profiled replay's extent on the card; a
      profiled fit_scan takes one sample a chunk and shows the program's
-     spans.
-The line before the last is {"kernels": [...]}, all fifteen kernels with
+     spans;
+ 19. the 4-op layer's epilogue (csrc/epilogue4.cu) against its twins (the
+     unfused chain, on the card): at every layer's (C, q) of
+     GRAPH_CHANNELS on the 32^3 b4 cube form in bf16 (h1 the strided
+     slice of the joint product where q < C, relu but on the last layer)
+     and three of them in f32, and at the velocity net's q 64 and last
+     layer (16, 6) on the 64^3 b4 block-major form (core (4, 8, 8)): the
+     forward bit-equal, the backward's masked gradient equal and its sums
+     within 1e-5 of their |terms| (plus one bf16 unit), both repeatable,
+     one launch counted each; each timed beside its logical bytes' bound
+     and the unfused chain (forward; autograd's backward of it), its
+     kernels' names in the benchmark's "other" bucket.
+The line before the last is {"kernels": [...]}, all seventeen kernels with
 their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
 tensor cores); the last line is {"ok": true, "device": {...}}.
 """
@@ -181,19 +195,26 @@ import torch
 CELLS, BATCH, K, WINDOW = 32, 4, 14, 2
 WIDTHS = (3, 16, 32, 64)          # the layer widths the gather/scatter see
 SEG_WIDTHS = (1,) + WIDTHS        # and the segment sum's, counts included
-# launches of one main-path train step: the graph build, and the segment
-# sum's 6 forward scatter-means + 5 gradients of the gathers
-STEP_LAUNCHES = {"lattice_knn": 1, "topk_min": 0, "neighbor_segment_sum": 11}
+# the 4-op layer's epilogue (ops/kernels/epilogue4.py) on every route of
+# a 4-op train step: its forward and its backward once a layer
+EPILOGUE4_STEP_LAUNCHES = {"epilogue4_forward": 6, "epilogue4_backward": 6}
+# launches of one main-path train step: the graph build, the segment
+# sum's 6 forward scatter-means + 5 gradients of the gathers, the epilogue
+STEP_LAUNCHES = {"lattice_knn": 1, "topk_min": 0, "neighbor_segment_sum": 11,
+                 **EPILOGUE4_STEP_LAUNCHES}
 # every launch of one train step on the 64^3 index route and the 32^3
 # block route: the features' gather, 6 forward and 5 backward gathers; the
 # 6 forward scatter-means and 5 gradients of the gathers (the in-degree
-# counts come off the block plan, with no launch)
-INDEX_STEP_LAUNCHES = {"lattice_knn": 1, "idx_dot_gather": 12, "idx_dot_scatter": 11}
-BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "block_gather": 12, "block_scatter": 11}
+# counts come off the block plan, with no launch); the epilogue
+INDEX_STEP_LAUNCHES = {"lattice_knn": 1, "idx_dot_gather": 12, "idx_dot_scatter": 11,
+                       **EPILOGUE4_STEP_LAUNCHES}
+BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "block_gather": 12, "block_scatter": 11,
+                       **EPILOGUE4_STEP_LAUNCHES}
 # and on the int8 route: the features' gather, 6 forward and 5 backward
 # gathers (H); the in-degree count, 6 forward scatter-means and 5
-# gradients of the gathers (I)
-INT8_STEP_LAUNCHES = {"lattice_knn": 1, "mask_dot_gather": 12, "mask_dot_scatter": 12}
+# gradients of the gathers (I); the epilogue
+INT8_STEP_LAUNCHES = {"lattice_knn": 1, "mask_dot_gather": 12, "mask_dot_scatter": 12,
+                      **EPILOGUE4_STEP_LAUNCHES}
 # H100 SXM published peaks (NVIDIA data sheet), the bounds' denominators
 H100_BYTES_PER_S = 3.35e12
 H100_FP32_OPS = 67e12
@@ -203,10 +224,11 @@ CELLS64 = 64
 SET_CELLS, SET_BATCH, ATTN_BATCH = 16, 4, 10
 # phase 16: the chain's hops, and every launch of one rollout hop on the
 # main path's model (models/shiftinv.py): the graph build, the features'
-# gather and one gather a layer (B), one scatter-mean a layer (C)
+# gather and one gather a layer (B), one scatter-mean a layer (C), the
+# epilogue's forward once a layer
 CHAIN_STEPS = 4
 ROLLOUT_HOP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
-                        "neighbor_segment_sum": 6}
+                        "neighbor_segment_sum": 6, "epilogue4_forward": 6}
 # phase 17: the 15-op family (models/shiftinv15.py).  Widths of the
 # reverse-edge lookup (kernel B at K' = 1 over the (b, N*K, C) edge table,
 # C = the layer's input or output width, whichever is smaller) and the
@@ -247,10 +269,13 @@ S15_BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
                            "neighbor_segment_sum": 6, "block_gather": 19,
                            "block_scatter": 19, **S15_EPILOGUE_LAUNCHES}
 # --remat: every layer's forward runs again in the backward pass: the
-# 4-op main step adds B 6 and C 6, the 15-op direct step B 18 and C 7,
-# the epilogue's forward 6 and the transpose's 3
+# 4-op main step adds B 6, C 6 and the 4-op epilogue's forward 5 (the last
+# layer's recompute stops before its epilogue, which saves nothing), the
+# 15-op direct step B 18 and C 7, the epilogue's forward 6 and the
+# transpose's 3
 REMAT_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 18,
-                       "neighbor_segment_sum": 17}
+                       "neighbor_segment_sum": 17, "epilogue4_forward": 11,
+                       "epilogue4_backward": 6}
 S15_REMAT_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 44,
                            "neighbor_segment_sum": 32, "edge_epilogue_forward": 12,
                            "edge_epilogue_backward": 6, "edge_transpose_forward": 6,
@@ -264,6 +289,7 @@ INDEX_CORES = ((4, 8, 8), (8, 8, 8))
 BLOCK_SRC = "nbody_tpu_torch/csrc/block_kernels.cu"
 MASK_SRC = "nbody_tpu_torch/csrc/mask_kernels.cu"
 EPILOGUE_SRC = "nbody_tpu_torch/csrc/edge_epilogue.cu"
+EPILOGUE4_SRC = "nbody_tpu_torch/csrc/epilogue4.cu"
 # widths the mask-dot kernels see on the int8 route: the counts, the
 # displacement gather and the channels 3-32-64-64-32-16-3
 MASK_WIDTHS = (1, 3, 16, 32, 64)
@@ -293,6 +319,9 @@ REPO_KERNELS = {
     **{n: (EPILOGUE_SRC, "none (the XLA-fused chain)")
        for n in ("edge_epilogue_forward", "edge_epilogue_backward",
                  "edge_transpose_forward", "edge_transpose_backward")},
+    # and so does the 4-op layer's epilogue
+    **{n: (EPILOGUE4_SRC, "none (the XLA-fused chain)")
+       for n in ("epilogue4_forward", "epilogue4_backward")},
 }
 
 
@@ -1701,7 +1730,9 @@ REPO_SYMBOLS = ("lattice_knn_kernel", "gather_rows_kernel", "segment_sum_kernel"
                 "patch_gather_kernel", "mask_gather_kernel", "mask_scatter_kernel",
                 "edge_epilogue_kernel", "edge_epilogue_bwd_kernel",
                 "edge_sample_sums_kernel", "edge_transpose_kernel",
-                "edge_transpose_bwd_kernel")
+                "edge_transpose_bwd_kernel", "epilogue4_kernel",
+                "epilogue4_rows_kernel", "epilogue4_bwd_kernel",
+                "epilogue4_sums_kernel")
 # the 15-op layers' (C, q) at GRAPH_CHANNELS
 EPILOGUE_LAYERS = ((3, 32), (32, 64), (64, 64), (64, 32), (32, 16), (16, 3))
 
@@ -2252,7 +2283,7 @@ def run_graph_options(dev, C, dataset):
         one_step_launches(trainer, x, y,
                           REMAT_STEP_LAUNCHES if remat else
                           {"lattice_knn": 1, "neighbor_gather": 12,
-                           "neighbor_segment_sum": 11},
+                           "neighbor_segment_sum": 11, **EPILOGUE4_STEP_LAUNCHES},
                           f"main path remat={remat}")
         summary[f"remat_{remat}"] = step_time(trainer, x, y, 5,
                                               f"main path f32, remat={remat}")
@@ -2676,6 +2707,148 @@ def run_tracing(dev, C, dataset):
     print(f"tracing (phase 18): {json.dumps(summary)}")
 
 
+# phase 19: the 4-op epilogue's cases: (form, the row axes of one sample,
+# (C, q), dtype, relu) -- every layer of GRAPH_CHANNELS on the 32^3 cube
+# form in bf16, three in f32 (the last on the narrow rows' kernels, as
+# q 16, 6 and 3 in bf16), and the velocity net's q 64 and last layer on
+# the 64^3 block-major form (core (4, 8, 8): NB 1,024 blocks of R 256)
+EPILOGUE4_CASES = (
+    *(("cube32", (CELLS ** 3,), cq, "bfloat16", i < len(EPILOGUE_LAYERS) - 1)
+      for i, cq in enumerate(EPILOGUE_LAYERS)),
+    ("cube32", (CELLS ** 3,), (64, 64), "float32", True),
+    ("cube32", (CELLS ** 3,), (64, 32), "float32", True),
+    ("cube32", (CELLS ** 3,), (16, 3), "float32", False),
+    ("block64", (CELLS64 ** 3 // 256, 256), (64, 64), "bfloat16", True),
+    ("block64", (CELLS64 ** 3 // 256, 256), (16, 6), "bfloat16", False),
+)
+
+
+def check_epilogue4(dev):
+    """Phase 19: the 4-op layer's epilogue (csrc/epilogue4.cu) at
+    EPILOGUE4_CASES, b4 K 14: the forward against its twin (the unfused
+    chain, run on the card) equal as values and bit for bit where nonzero,
+    identical across two launches, one launch counted; the backward's
+    masked gradient equal to its twin's, its K, sample and batch sums
+    within 1e-5 of the summed |terms| plus one bf16 unit for bf16 results,
+    identical across two launches, one launch counted.  Each is timed
+    beside its logical bytes' bound at 3.35 TB/s (forward: h1's q of each
+    row, h2 and the output once each, h3, h4 and the bias once; backward:
+    the gradient, under relu the output and the masked gradient, once
+    each, and h3's gradient) and the unfused chain (forward; autograd's
+    backward of it), and its kernels' names land in the benchmark's
+    "other" bucket.  Returns the timings and errors of every case, and the
+    kernels line's record of each wrapper at the main path's widest layer
+    (C = q = 64, bf16, relu)."""
+    from benchmark_torch.yardstick.buckets import bucket_of
+    from nbody_tpu_torch.ops.kernels import epilogue4 as E4
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(19)
+    summary, names = {}, set()
+
+    def randn(*shape, dt):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    def same(a, w):
+        """Equal as values, and bit for bit where nonzero."""
+        nz = w != 0
+        return (a.dtype == w.dtype and torch.equal(a, w)
+                and torch.equal(a[nz].float().view(torch.int32),
+                                w[nz].float().view(torch.int32)))
+
+    def counted(fn, name):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        check(launches() == {name: 1}, f"{name}: launches {dict(launches())}")
+        return out
+
+    for form, lead, (c, q), dtype, relu in EPILOGUE4_CASES:
+        dt = getattr(torch, dtype)
+        strided = q < c
+        label = (f"{form} C={c} q={q} {dtype}{' relu' if relu else ''}"
+                 f"{' strided h1' if strided else ''}")
+        shape = (BATCH, *lead, K, q)
+        h1 = (randn(*shape[:-1], 2 * q, dt=dt)[..., :q] if strided
+              else randn(*shape, dt=dt))
+        terms = (h1, randn(*shape, dt=dt), randn(BATCH, *lead, q, dt=dt),
+                 randn(BATCH, q, dt=dt), randn(q, dt=dt))
+
+        def fwd():
+            return E4.epilogue4_forward(*terms, relu)
+
+        def plain():
+            return E4.epilogue4_plain(*terms, relu)
+
+        got, want = counted(fwd, "epilogue4_forward"), plain()
+        fwd_err = float((got.float() - want.float()).abs().max())
+        check(same(got, want) and torch.equal(got, fwd()),
+              f"epilogue4 {label}: not the unfused chain's values or bits, "
+              "or not repeatable")
+        del got
+        grad = randn(*shape, dt=dt)
+        y = want if relu else None
+        dtypes = (dt,) * 5
+
+        def bwd():
+            return E4.epilogue4_backward(grad, y, dtypes)
+
+        g1 = counted(bwd, "epilogue4_backward")
+        g2 = bwd()
+        gw = E4.epilogue4_backward_plain(grad, y, dtypes)
+        check(all(a.dtype == w.dtype and a.shape == w.shape and torch.equal(a, a2)
+                  for a, a2, w in zip(g1, g2, gw))
+              and torch.equal(g1[0], gw[0]) and g1[1] is g1[0],
+              f"epilogue4 backward {label}: the masked gradient differs from "
+              "its twin's, or a result's dtype, shape or bits across launches")
+        del g2
+        gabs = E4.epilogue4_backward_plain(grad.abs().float(), y, (torch.float32,) * 5)
+        worst, bwd_err = 0.0, 0.0
+        for i in (2, 3, 4):
+            a, w = g1[i].float(), gw[i].float()
+            tol = 1e-5 * gabs[i] + (bf16_ulp(w) if dt == torch.bfloat16 else 0.0)
+            bwd_err = max(bwd_err, float((a - w).abs().max()))
+            worst = max(worst, float(((a - w).abs() - tol).max()))
+        check(worst <= 0, f"epilogue4 backward {label}: a sum off its twin by "
+                          f"{worst:.3e} beyond 1e-5 of its |terms|")
+        del g1, gw, gabs
+        es = torch.tensor([], dtype=dt).element_size()
+        edge, node = h1.numel() * es, terms[2].numel() * es
+        small = (BATCH * q + q) * es
+        leaves = [x.detach().requires_grad_() for x in terms]
+        out = E4.epilogue4_plain(*leaves, relu)
+
+        def unfused_backward():
+            return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+        rec = {"fwd": time_row(f"epilogue4_forward {label}", fwd, plain, None,
+                               bound(3 * edge + node + small)),
+               "bwd": time_row(f"epilogue4_backward {label}", bwd,
+                               unfused_backward, None,
+                               bound((3 if relu else 1) * edge + node + small))}
+        rec["fwd"]["max_abs_err"], rec["bwd"]["max_abs_err"] = fwd_err, bwd_err
+        for key in ("fwd", "bwd"):
+            rec[key]["share"] = rec[key]["bound_ms"] / rec[key]["ms"]
+        names.update(r[0] for r in cuda_profile(lambda: (fwd(), bwd()), 2))
+        summary[label] = rec
+        del h1, terms, grad, y, want, leaves, out
+        torch.cuda.empty_cache()
+    ours = sorted(nm for nm in names if "epilogue4" in nm)
+    bad = [nm for nm in ours if bucket_of(nm) != "other"]
+    symbols = ("epilogue4_kernel", "epilogue4_rows_kernel", "epilogue4_bwd_kernel",
+               "epilogue4_sums_kernel")
+    print(f"epilogue4 at {len(EPILOGUE4_CASES)} cases: forward equal to the "
+          f"unfused chain bit for bit, backward within its sums' tolerance, "
+          f"all repeatable; kernels {ours}")
+    check(all(any(sym + "<" in nm for nm in ours) for sym in symbols) and not bad,
+          f"epilogue4 kernels {ours}: {bad} land in a benchmark bucket other "
+          f"than other, or one of {symbols} did not run")
+    print(f"epilogue4 (phase 19, {time.perf_counter() - t_phase:.1f} s): "
+          f"{json.dumps(summary)}")
+    widest = summary["cube32 C=64 q=64 bfloat16 relu"]
+    return {"epilogue4_forward": widest["fwd"], "epilogue4_backward": widest["bwd"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2685,8 +2858,9 @@ def main() -> int:
     from nbody_tpu_torch.data.dataset import Dataset, split_batch
     from nbody_tpu_torch.models.registry import build_model
     from nbody_tpu_torch.ops.kernels import (banded_kernels, block_kernels, build,
-                                             edge_epilogue, fused_kernels,
-                                             mask_kernels, topk_kernels)
+                                             edge_epilogue, epilogue4,
+                                             fused_kernels, mask_kernels,
+                                             topk_kernels)
     from nbody_tpu_torch.physics.losses import loss_za
     from nbody_tpu_torch.train.trainer import Trainer
 
@@ -2702,7 +2876,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libraries = (topk_kernels.library, banded_kernels.library,
                  block_kernels.library, mask_kernels.library,
-                 fused_kernels.library, edge_epilogue.library)
+                 fused_kernels.library, edge_epilogue.library,
+                 epilogue4.library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda load: load(), libraries))
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
@@ -2840,6 +3015,10 @@ def main() -> int:
     run_graph_options(dev, C, dataset)
     # 18. the program's tracing: timeline, counters, samples, spans
     run_tracing(dev, C, dataset)
+    # 19. the 4-op layer's epilogue on the cube and block-major forms
+    rec.update(check_epilogue4(dev))
+    for n in EPILOGUE4_STEP_LAUNCHES:
+        counters[n] = step[n]
 
     kernels = [{"name": n, "route": "cuda", "source": REPO_KERNELS[n][0],
                 "replaces": REPO_KERNELS[n][1], "launches": counters[n],

@@ -12,7 +12,10 @@ Pooled tensors are multiplied at their pooled size before broadcasting
 (identical by linearity).  The last layer pools edges back to particles
 with a mean over K.  The gather and scatter are the port's CUDA kernels
 (ops/banded.py picks the route from ``lattice`` / ``masks``); the weight
-products are plain torch matmuls, as they were plain XLA dots in JAX.
+products are plain torch matmuls, as they were plain XLA dots in JAX.  The
+sum of the four terms and the bias, and relu where the activation is relu
+and the layer not the last, is one pass each way (ops/kernels/epilogue4),
+as XLA fused it.
 
 On the masked routes (``masks`` = the BlockPlan of per-edge patch
 positions, or int8 / packed int4 one-hot masks) the network keeps edge activations BLOCK-MAJOR
@@ -40,6 +43,7 @@ from nbody_tpu_torch.ops.banded import (neighbor_counts, neighbor_gather,
                                         neighbor_segment_mean, route_plan)
 from nbody_tpu_torch.ops.graph_features import (edge_features_with_nodes,
                                                 edge_features_za)
+from nbody_tpu_torch.ops.kernels.epilogue4 import epilogue4
 
 
 def init_shiftinv_params(generator: torch.Generator,
@@ -61,11 +65,14 @@ def shift_inv_layer(h: torch.Tensor, idx: torch.Tensor,
                     layer_params: Dict[str, torch.Tensor],
                     is_last: bool = False,
                     counts: Optional[torch.Tensor] = None,
-                    lattice=None, masks=None, plan=None) -> torch.Tensor:
+                    lattice=None, masks=None, plan=None,
+                    relu: bool = False) -> torch.Tensor:
     """One 4-op layer (shiftinv.py:45-105).  h (b, N, K, C) edges, idx
     (b, N, K).  counts: in-degrees shared by every layer; plan: the
     direct route's GraphPlan or the block route's BlockPlan, likewise
-    shared.  Returns (b, N, K, q), or (b, N, q) if is_last."""
+    shared.  The sum of the four terms and the bias, with relu where
+    `relu`, is one pass (ops/kernels/epilogue4: one kernel each way on a
+    card).  Returns (b, N, K, q), or (b, N, q) if is_last."""
     w = layer_params["W"]          # (4, C, q)
     bias = layer_params["B"][0]    # (q,)
     c_in, q = w.shape[1], w.shape[2]
@@ -86,12 +93,12 @@ def shift_inv_layer(h: torch.Tensor, idx: torch.Tensor,
 
     # op 3: pool cols == mean over K, broadcast over K
     pooled_cols = torch.mean(h, dim=2)                          # (b, N, C)
-    h3 = torch.matmul(pooled_cols, w[2])[:, :, None, :]
+    h3 = torch.matmul(pooled_cols, w[2])                        # (b, N, q)
     # op 4: cube mean == mean of the K-means (every row has K slots)
     pooled_all = torch.mean(pooled_cols, dim=1)                 # (b, C)
-    h4 = torch.matmul(pooled_all, w[3])[:, None, None, :]
+    h4 = torch.matmul(pooled_all, w[3])                         # (b, q)
 
-    h_out = h1 + h2 + h3 + h4 + bias
+    h_out = epilogue4(h1, h2, h3, h4, bias, relu)
     if is_last:
         return torch.mean(h_out, dim=2)                         # (b, N, q)
     return h_out
@@ -113,9 +120,10 @@ def shiftinv_network(params: List[Dict[str, torch.Tensor]], edges: torch.Tensor,
     layer = remat_layer(shift_inv_layer, remat)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
+        relu = activation is torch.relu and not is_last
         h = layer(h, idx, layer_params, is_last=is_last, counts=counts,
-                  lattice=lattice, masks=masks, plan=plan)
-        if not is_last:
+                  lattice=lattice, masks=masks, plan=plan, relu=relu)
+        if not is_last and not relu:
             h = activation(h)
         h = tracing.probe(h, f"layer{i}")
     return h
@@ -123,7 +131,8 @@ def shiftinv_network(params: List[Dict[str, torch.Tensor]], edges: torch.Tensor,
 
 def _shift_inv_layer_blocks(hB: torch.Tensor, layer_params, masks, cells: int,
                             window: int, counts: torch.Tensor, is_last: bool,
-                            core, self_free: bool) -> torch.Tensor:
+                            core, self_free: bool,
+                            relu: bool = False) -> torch.Tensor:
     """The 4-op layer on BLOCK-MAJOR edges hB (b, NB, R, K, C) over the
     masked routes (shiftinv.py:133-181); same semantics as
     shift_inv_layer, without the edge tensor's cube transposes."""
@@ -149,11 +158,11 @@ def _shift_inv_layer_blocks(hB: torch.Tensor, layer_params, masks, cells: int,
         h2 = torch.matmul(pooled, w[1])
 
     pooled_cols = torch.mean(hB, dim=3)                         # (b, NB, R, C)
-    h3 = torch.matmul(pooled_cols, w[2])[:, :, :, None, :]
+    h3 = torch.matmul(pooled_cols, w[2])                        # (b, NB, R, q)
     pooled_all = torch.mean(pooled_cols, dim=(1, 2))            # (b, C)
-    h4 = torch.matmul(pooled_all, w[3])[:, None, None, None, :]
+    h4 = torch.matmul(pooled_all, w[3])                         # (b, q)
 
-    h_out = h1 + h2 + h3 + h4 + bias
+    h_out = epilogue4(h1, h2, h3, h4, bias, relu)
     if is_last:
         return torch.mean(h_out, dim=3)                         # (b, NB, R, q)
     return h_out
@@ -173,9 +182,10 @@ def _shiftinv_network_blocks(params, edges: torch.Tensor, masks, lattice,
     layer = remat_layer(_shift_inv_layer_blocks, remat)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
+        relu = activation is torch.relu and not is_last
         hB = layer(hB, layer_params, masks, cells, window, counts, is_last,
-                   core, self_free)
-        if not is_last:
+                   core, self_free, relu)
+        if not is_last and not relu:
             hB = activation(hB)
         hB = tracing.probe(hB, f"layer{i}")
     return blocked.nodes_blocks_to_cube(hB, cells, core=core)   # (b, N, q)
