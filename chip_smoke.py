@@ -192,6 +192,10 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from benchmark_torch.yardstick import peaks
+# the bounds' denominators: the H100 SXM's published peaks
+from benchmark_torch.yardstick.peaks import H100_BF16_TC_OPS, H100_FP32_OPS
+
 CELLS, BATCH, K, WINDOW = 32, 4, 14, 2
 WIDTHS = (3, 16, 32, 64)          # the layer widths the gather/scatter see
 SEG_WIDTHS = (1,) + WIDTHS        # and the segment sum's, counts included
@@ -215,10 +219,6 @@ BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "block_gather": 12, "block_scatter": 11
 # gradients of the gathers (I); the epilogue
 INT8_STEP_LAUNCHES = {"lattice_knn": 1, "mask_dot_gather": 12, "mask_dot_scatter": 12,
                       **EPILOGUE4_STEP_LAUNCHES}
-# H100 SXM published peaks (NVIDIA data sheet), the bounds' denominators
-H100_BYTES_PER_S = 3.35e12
-H100_FP32_OPS = 67e12
-H100_BF16_TC_OPS = 989e12
 CELLS64 = 64
 # phase 15: set at BASELINE config 1 (16^3 b4), attn at the reference's b10
 SET_CELLS, SET_BATCH, ATTN_BATCH = 16, 4, 10
@@ -401,12 +401,10 @@ def nbytes(*tensors):
 
 
 def bound(n_bytes, ops=0.0, ops_rate=H100_FP32_OPS):
-    """(bound_ms, bound_by): the least time the card could take for work
-    that moves n_bytes (each input read once, each output written once)
-    and does `ops` operations at `ops_rate` per second."""
-    t_bytes = n_bytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / ops_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(bound_ms, bound_by): peaks.bound, the least time the card could
+    take for the work, in milliseconds."""
+    t, by = peaks.bound(n_bytes, ops, ops_rate)
+    return t * 1e3, by
 
 
 def set_bound(rec, n_bytes, ops=0.0, ops_rate=H100_FP32_OPS):
@@ -485,8 +483,8 @@ def check_kernels(dev, idx):
     f32 and bf16 and identical across two launches; both autograd
     Functions against the CPU; times, bounds and library times.  Returns
     per-kernel records."""
-    from nbody_tpu_torch.ops import banded
     from nbody_tpu_torch.ops.kernels import banded_kernels as B
+    from nbody_tpu_torch.ops.route import Route
 
     g = torch.Generator(device=dev).manual_seed(0)
     rec = {name: {"max_abs_err": 0.0}
@@ -533,15 +531,15 @@ def check_kernels(dev, idx):
     c = 16
     v = torch.randn((b, n, c), generator=g, device=dev, requires_grad=True)
     ct = torch.randn((b, n, k, c), generator=g, device=dev)
-    (gv,) = torch.autograd.grad(banded.neighbor_gather(v, idx, plan=plan), v, ct)
+    route, route_cpu = Route("direct", idx, plan), Route.direct(idx_cpu)
+    (gv,) = torch.autograd.grad(route.gather(v), v, ct)
     vc = v.detach().cpu().requires_grad_()
-    (gvc,) = torch.autograd.grad(banded.neighbor_gather(vc, idx_cpu), vc, ct.cpu())
+    (gvc,) = torch.autograd.grad(route_cpu.gather(vc), vc, ct.cpu())
     e = torch.randn((b, n, k, c), generator=g, device=dev, requires_grad=True)
     ct2 = torch.randn((b, n, c), generator=g, device=dev)
-    (ge,) = torch.autograd.grad(banded.neighbor_scatter_add(e, idx, plan=plan), e, ct2)
+    (ge,) = torch.autograd.grad(route.scatter_add(e), e, ct2)
     ec = e.detach().cpu().requires_grad_()
-    (gec,) = torch.autograd.grad(banded.neighbor_scatter_add(ec, idx_cpu),
-                                 ec, ct2.cpu())
+    (gec,) = torch.autograd.grad(route_cpu.scatter_add(ec), ec, ct2.cpu())
     print(f"autograd: gather grad (kernel C) bit-equal {torch.equal(gv.cpu(), gvc)}; "
           f"scatter grad (kernel B) bit-equal {torch.equal(ge.cpu(), gec)}")
     check(torch.equal(gv.cpu(), gvc) and torch.equal(ge.cpu(), gec),
@@ -628,9 +626,10 @@ def check_select_kernels(dev, idx64, idx32):
     identical across two launches; both autograd pairs against the CPU;
     kernel, plain version and library call timed at every width.  Returns
     per-kernel records."""
-    from nbody_tpu_torch.ops import banded, blocked
+    from nbody_tpu_torch.ops import blocked
     from nbody_tpu_torch.ops.kernels import block_kernels as BK
     from nbody_tpu_torch.ops.kernels import idx_kernels as IK
+    from nbody_tpu_torch.ops.route import Route
 
     g = torch.Generator(device=dev).manual_seed(1)
     rec = {n: {"max_abs_err": 0.0}
@@ -753,21 +752,17 @@ def check_select_kernels(dev, idx64, idx32):
           f"{torch.equal(ge.cpu(), gec)}")
     check(torch.equal(gp.cpu(), gpc) and torch.equal(ge.cpu(), gec),
           "idx pair gradients disagree")
-    lat = (CELLS, WINDOW)
+    block, block_cpu = (Route.block(i, CELLS, WINDOW) for i in (idx32, idx32.cpu()))
     v = randn((BATCH, CELLS ** 3, 16), bf).requires_grad_()
     ct = randn((BATCH, CELLS ** 3, K, 16), bf)
-    (gv,) = torch.autograd.grad(banded.neighbor_gather(v, idx32, lat, plan=plan32),
-                                v, ct)
+    (gv,) = torch.autograd.grad(block.gather(v), v, ct)
     vc = v.detach().cpu().requires_grad_()
-    (gvc,) = torch.autograd.grad(banded.neighbor_gather(vc, idx32.cpu(), lat),
-                                 vc, ct.cpu())
+    (gvc,) = torch.autograd.grad(block_cpu.gather(vc), vc, ct.cpu())
     e = randn((BATCH, CELLS ** 3, K, 16), bf).requires_grad_()
     ct2 = randn((BATCH, CELLS ** 3, 16), bf)
-    (ge,) = torch.autograd.grad(banded.neighbor_scatter_add(e, idx32, lat,
-                                                            plan=plan32), e, ct2)
+    (ge,) = torch.autograd.grad(block.scatter_add(e), e, ct2)
     ec = e.detach().cpu().requires_grad_()
-    (gec,) = torch.autograd.grad(banded.neighbor_scatter_add(ec, idx32.cpu(), lat),
-                                 ec, ct2.cpu())
+    (gec,) = torch.autograd.grad(block_cpu.scatter_add(ec), ec, ct2.cpu())
     print(f"autograd block pair: gather grad (kernel G) bit-equal "
           f"{torch.equal(gv.cpu(), gvc)}; scatter grad (kernel F) bit-equal "
           f"{torch.equal(ge.cpu(), gec)}")
@@ -1784,6 +1779,7 @@ def check_15op_kernels(dev, idx):
     from nbody_tpu_torch.ops.kernels import block_kernels as BK
     from nbody_tpu_torch.ops.kernels import idx_kernels as IK
     from nbody_tpu_torch.ops.kernels import mask_kernels as MK
+    from nbody_tpu_torch.ops.route import Route
 
     g = torch.Generator(device=dev).manual_seed(17)
     bf = torch.bfloat16
@@ -1795,9 +1791,9 @@ def check_15op_kernels(dev, idx):
     graph = S15.build_block_sym_graph(idx)
     graph_cpu = S15.build_block_sym_graph(idx.cpu())
     same = [torch.equal(a.cpu(), c) for a, c in zip(graph, graph_cpu)]
-    lookup = S15.reverse_lookup(graph)
-    lookup_cpu = S15.reverse_lookup(graph_cpu)
-    same_lookup = torch.equal(lookup.ids.cpu(), lookup_cpu.ids) and all(
+    lookup = S15.reverse_lookup(graph, Route.direct(idx))
+    lookup_cpu = S15.reverse_lookup(graph_cpu, Route.direct(idx.cpu()))
+    same_lookup = torch.equal(lookup.idx.cpu(), lookup_cpu.idx) and all(
         torch.equal(a.cpu(), c) for a, c in zip(lookup.plan, lookup_cpu.plan))
     print(f"symmetrized graph on the card (idx, rev_pos, mask_b, deg) equal to "
           f"the CPU's: {same}; live reversed edges "
@@ -1805,7 +1801,7 @@ def check_15op_kernels(dev, idx):
           f"{float(graph.deg.max())}; lookup ids and plan equal: {same_lookup}")
     check(all(same) and same_lookup, "the card's symmetrized graph or lookup "
                                      "differs from the CPU's")
-    ids, plan, plan_cpu = lookup.ids, lookup.plan, lookup_cpu.plan
+    ids, plan, plan_cpu = lookup.idx, lookup.plan, lookup_cpu.plan
     b, rows, _ = ids.shape
 
     # (a) kernel B at K' = 1 and kernel C over the lookup's plan

@@ -33,7 +33,7 @@
 // flight: up to 2,048 threads an SM, no shared memory, no barriers.
 // Why no shared memory: the first version staged a (block, C tile) per CTA
 // in shared memory in two phases (48 % of the bound at C 64), and a
-// persistent ring of TMA-fed patch tiles (scripts/gather_ring.cu) reached
+// persistent ring of TMA-fed patch tiles (a variant since removed) reached
 // 64 % at F's C 64 and under 16 % at D's C-tiled C 64, where this kernel
 // reaches 88-97 % (H100 80GB HBM3 at 700 W, PERF.md): the ring's eight
 // consumer warps an SM could not keep enough stores in flight, and its C

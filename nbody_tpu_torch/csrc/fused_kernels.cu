@@ -60,8 +60,8 @@
 // a CTA), which sets the m16 tiles it owns; the chain has a warp of its
 // own (in the consumers, its fragments spilled).
 //
-// What holds it back (scripts/torch_fused_variants.py and
-// torch_fused_sections.py, PERF.md §6): not the stream.  A 32-row tile
+// What holds it back (variant and per-section timings, PERF.md §6): not
+// the stream.  A 32-row tile
 // costs the consumers ~3.2 us against the ring's 1.5 at the bench shape,
 // in two latency-bound mma.sync passes and the cross-warp sum; in clusters
 // of 4 each CTA walks twice the tiles and one chain warp falls behind.
@@ -87,7 +87,7 @@
 
 #include "tma_ring.cuh"
 
-// variant switches (scripts/torch_fused_variants.py times them off):
+// variant switches (PERF.md §6 has the timings with them off):
 // the patch B fragments held in registers for a block, or read through L2
 // at every tile; the two mask products, or none of them (the ring, the
 // exchange and the chain alone)

@@ -16,12 +16,12 @@ or exact pairwise search).  Mixed precision is the JAX package's
 forward casts them and the input to the compute dtype and returns f32
 predictions.
 
-Each forward also picks its neighbor route (``_make_masks``) and records
-it in ``impl_record``: the masked index route (kernels D/E) for
-``mask_dtype="index"`` and the integer-mask route (kernels H/I) for
-``mask_dtype="int8"|"int4"``, both in bf16; the block route (kernels F/G)
-for ``neighbor_impl="block"``; the direct kernels B/C for
-``neighbor_impl="banded"`` (recorded as "banded") and otherwise.  Only
+Each forward also picks its neighbor route (``_make_route``, an
+ops/route.Route) and records it in ``impl_record``: the masked index
+route (kernels D/E) for ``mask_dtype="index"`` and the integer-mask route
+(kernels H/I) for ``mask_dtype="int8"|"int4"``, both in bf16; the block
+route (kernels F/G) for ``neighbor_impl="block"``; the direct kernels B/C
+for ``neighbor_impl="banded"`` (recorded as "banded") and otherwise.  Only
 the lattice search on a full cube takes the block and masked routes, as
 in JAX.  The set and attn families use no neighbor op.
 """
@@ -40,6 +40,7 @@ from nbody_tpu_torch.models import attn, set_net, shiftinv, shiftinv15
 from nbody_tpu_torch.ops import blocked
 from nbody_tpu_torch.ops.banded import band_violations, default_band
 from nbody_tpu_torch.ops.knn import knn_periodic_batch, knn_periodic_lattice_batch
+from nbody_tpu_torch.ops.route import MASKED_KINDS, Route
 
 # the exact O(N^2) coverage oracle runs on the device up to this size; above
 # it the host searches exactly with a periodic k-d tree (exact_knn_host)
@@ -107,72 +108,53 @@ def _make_knn(cfg: C.ModelConfig, box: float):
     return knn
 
 
-def _make_masks(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
-                dtype: torch.dtype, record: dict):
-    """The neighbor route of one forward -> (masks, lattice), filling
-    ``record`` (impl, core, mask_dtype, downgrade; mask_bytes on the
-    int8/int4 route) as _make_masks and Trainer._log_effective_impl do in
-    JAX (registry.py:218-301).
+def _make_route(cfg: C.ModelConfig, cells: int, n: int, idx: torch.Tensor,
+                dtype: torch.dtype) -> Route:
+    """The neighbor route of one forward, its plan or masks built here
+    once, as _make_masks and Trainer._log_effective_impl pick and record
+    it in JAX (registry.py:218-301; ``Route.record``).
 
-    masks = the BlockPlan of per-edge patch positions (block_index_plan,
-    built here once per forward) or int8 / packed int4 one-hot masks
-    (block_masks), self slot dropped, with lattice =
-    (cells, window, core, True) select the masked routes; (None, (cells,
-    window)) the block route; (None, None) the direct kernels B/C, which
-    ``neighbor_impl="banded"`` and every graph not from the lattice
-    search take.  The mask kernels select in bf16, so exact-f32 mode
-    downgrades ``index``, ``int8`` and ``int4`` to the direct route and
-    records it.  The candidate cores follow --masked_core, with (8, 8, 8)
-    first for shiftinv15; int8/int4 take the first candidate core whose
-    masks fit MASKED_BYTES_CAP and fall back to the block route, with a
-    warning, when none does."""
-    record.clear()
-    record.update(impl="direct", core=None, mask_dtype=None, downgrade=None)
+    The masked index route (``mask_dtype="index"``: the BlockPlan of
+    per-edge patch positions) and the int8 / int4 route (one-hot masks),
+    self slot dropped; the block route for ``neighbor_impl="block"``; the
+    direct kernels B/C, which ``neighbor_impl="banded"`` (recorded as
+    "banded") and every graph not from the lattice search take.  The mask
+    kernels select in bf16, so exact-f32 mode downgrades ``index``,
+    ``int8`` and ``int4`` to the direct route and records it.  The
+    candidate cores follow --masked_core, with (8, 8, 8) first for
+    shiftinv15; int8/int4 take the first candidate core whose masks fit
+    MASKED_BYTES_CAP and fall back to the block route, with a warning,
+    when none does."""
     b, k = idx.shape[0], idx.shape[-1]
     if cfg.neighbor_impl == "banded":
-        record.update(impl="banded")
-        return None, None
+        return Route.direct(idx, "banded")
     if not _uses_lattice(cfg, n, cells):
-        return None, None
+        return Route.direct(idx)
     if cfg.neighbor_impl == "block":
-        record.update(impl="block", core=list(blocked.CORE))
-        return None, (cells, cfg.knn_window)
+        return Route.block(idx, cells, cfg.knn_window)
     req = cfg.mask_dtype
-    if req not in ("index", "int8", "int4"):
-        return None, None
+    if req not in MASKED_KINDS:
+        return Route.direct(idx)
     if dtype == torch.float32:
-        record.update(downgrade=f"mask_dtype {req!r} in float32: the mask "
-                                "kernels select in bf16; direct kernels B/C")
-        return None, None
+        return Route.direct(idx, downgrade=f"mask_dtype {req!r} in float32: "
+                            "the mask kernels select in bf16; direct kernels B/C")
     candidates = ([tuple(cfg.masked_core)] if cfg.masked_core else []) + (
         [MASKED_CORE_15] if cfg.family == "shiftinv15" else []) + list(MASKED_CORES)
     for core in candidates:
         if any(cells % d for d in core):
             continue
-        lat = (cells, cfg.knn_window, core, True)
-        if req == "index":
-            record.update(impl="masked", core=list(core), mask_dtype="index")
-            return blocked.block_index_plan(idx, cells, cfg.knn_window,
-                                            core=core, drop_self_slot0=True), lat
-        if b * n * (k - 1) * blocked.patch_size(cells, cfg.knn_window, core) \
-                <= MASKED_BYTES_CAP:
-            masks = blocked.block_masks(
-                idx, cells, cfg.knn_window, core=core, drop_self_slot0=True,
-                dtype=torch.int8 if req == "int8" else "int4")
-            record.update(impl="masked", core=list(core), mask_dtype=req,
-                          mask_bytes=masks.numel() * masks.element_size())
-            return masks, lat
+        if req == "index" or b * n * (k - 1) * blocked.patch_size(
+                cells, cfg.knn_window, core) <= MASKED_BYTES_CAP:
+            return Route.masked(req, idx, cells, cfg.knn_window, core)
     if req == "index":
-        record.update(downgrade=f"no index core tiles a {cells}^3 cube; "
-                                "direct kernels B/C")
-        return None, None
+        return Route.direct(idx, downgrade=f"no index core tiles a {cells}^3 "
+                            "cube; direct kernels B/C")
     why = (f"no candidate core's {req} masks fit the "
            f"{MASKED_BYTES_CAP / 2 ** 30:.1f} GiB cap at this size")
     warnings.warn(f"mask_dtype={req!r}: {why}; falling back to the block "
                   "kernels", stacklevel=2)
-    record.update(impl="block", core=list(blocked.CORE),
-                  downgrade=f"{why}; block kernels F/G")
-    return None, (cells, cfg.knn_window)
+    return Route.block(idx, cells, cfg.knn_window,
+                       downgrade=f"{why}; block kernels F/G")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -297,21 +279,19 @@ class ShiftInvModel(_Model):
         (registry.py:415-423) and returns f32."""
         dt = self.dtype
         pos, za = _graph_geometry(x_in, self.box)
-        masks, lattice = _make_masks(self.cfg, self.cells, x_in.shape[-2], idx,
-                                     dt, self.impl_record)
-        return self._model(x_in, pos.to(dt), za.to(dt), idx, lattice,
-                           masks).to(torch.float32)
+        route = _make_route(self.cfg, self.cells, x_in.shape[-2], idx, dt)
+        self.impl_record = route.record()
+        return self._model(x_in, pos.to(dt), za.to(dt),
+                           route).to(torch.float32)
 
-    def _model(self, x_in, pos, za, idx, lattice, masks) -> torch.Tensor:
+    def _model(self, x_in, pos, za, route) -> torch.Tensor:
         dt, remat = self.dtype, self.cfg.remat
         layers = self.params.layers(dt)
         if self.velocity:
             return shiftinv.shiftinv_vel_model(
                 {"layers": layers, "T": self.params.T.to(dt)}, pos, za,
-                x_in[..., 6:9].to(dt), idx, self.box, lattice=lattice,
-                masks=masks, remat=remat)
-        return shiftinv.shiftinv_model(layers, pos, za, idx, self.box,
-                                       lattice=lattice, masks=masks,
+                x_in[..., 6:9].to(dt), route, self.box, remat=remat)
+        return shiftinv.shiftinv_model(layers, pos, za, route, self.box,
                                        remat=remat)
 
     def forward(self, x_in: torch.Tensor) -> torch.Tensor:
@@ -329,10 +309,10 @@ class ShiftInv15Model(ShiftInvModel):
         return shiftinv15.init_shiftinv15_params(
             gen, _channels(self.cfg, 3, C.GRAPH_CHANNELS))
 
-    def _model(self, x_in, pos, za, idx, lattice, masks) -> torch.Tensor:
+    def _model(self, x_in, pos, za, route) -> torch.Tensor:
         return shiftinv15.shiftinv15_model(
-            self.params.layers(self.dtype), pos, za, idx, self.box,
-            remat=self.cfg.remat, lattice=lattice, masks=masks)
+            self.params.layers(self.dtype), pos, za, route, self.box,
+            remat=self.cfg.remat)
 
 
 MODEL_CLASSES = {"set": SetModel, "attn": AttnModel,

@@ -19,15 +19,17 @@ them against onehot(rev_pos), or scans or scatters by slot
 one-hot on the TPU; it sums one nonzero product and K-1 exact zeros, so
 the lookup gives the same bits in f32 and bf16, and moves K times fewer
 bytes.  A non-mutual edge looks up slot 0 of its neighbor, which the
-layer multiplies by rev_exists = 0.  On the block-major routes the lookup
-runs over block-major edge ids.
+layer multiplies by rev_exists = 0.  The lookup is itself a direct route
+(ops/route.py) over the flat ids.  On the block-major routes it runs
+over block-major edge ids.
 
-Two network forms, as in JAX: the cube form (``shift_inv_15op_layer``)
-on the direct, banded and block routes, and the block-major form
-(``_shift_inv_15op_layer_blocks``) on the masked index and int8/int4
-routes, which keeps edge activations block-major between layers and runs
-exactly one fused scatter ([h_a | masked h_b], 2C wide) and one fused
-gather ([x_col | x_row], 2q wide) through the masks a layer.  The cube
+Two network forms, as in JAX, picked by the step's route: the cube form
+(``shift_inv_15op_layer``) on the direct, banded and block routes, and
+the block-major form (``_shift_inv_15op_layer_blocks``) on the masked
+index and int8/int4 routes, which keeps edge activations block-major
+between layers and runs exactly one fused scatter ([h_a | masked h_b],
+2C wide) and one fused gather ([x_col | x_row], 2q wide) through the
+masks a layer.  The cube
 form's edge-wise work after its products and gathers (the transpose's
 select, the broadcast stacks, the pooled and diagonal terms, the block
 mask and relu) is one pass each way, ops/kernels/edge_epilogue, and so
@@ -50,13 +52,11 @@ import torch
 from nbody_tpu_torch import tracing
 from nbody_tpu_torch.models.base import (LayerParams, init_network_params,
                                          remat_layer)
-from nbody_tpu_torch.ops import blocked
-from nbody_tpu_torch.ops.banded import (neighbor_gather, neighbor_scatter_add,
-                                        route_plan)
 from nbody_tpu_torch.ops.graph_features import neighbor_positions
 from nbody_tpu_torch.ops.kernels import banded_kernels as K
 from nbody_tpu_torch.ops.kernels.banded_kernels import GraphPlan, graph_plan
 from nbody_tpu_torch.ops.kernels.edge_epilogue import edge_epilogue, edge_transpose
+from nbody_tpu_torch.ops.route import Route
 from nbody_tpu_torch.physics.pbc import min_image_diff
 
 # neighbor ids travel through the f32 gather of the reverse-edge search:
@@ -78,13 +78,6 @@ class BlockSymGraph(NamedTuple):
     rev_pos: torch.Tensor    # (b, N, K) int32 j with idx[c, j] == n (else 0)
     mask_b: torch.Tensor     # (b, N, K) f32, 1 where the reversed edge is live
     deg: torch.Tensor        # (b, N) f32 symmetrized degree
-
-
-class ReverseLookup(NamedTuple):
-    """The transpose's lookup: flat edge-table ids (b, N*K, 1) int32 of the
-    source edge of every destination edge, and their GraphPlan."""
-    ids: torch.Tensor
-    plan: GraphPlan
 
 
 @torch.no_grad()
@@ -115,42 +108,42 @@ def build_block_sym_graph(idx: torch.Tensor, plan: GraphPlan = None) -> BlockSym
 
 
 @torch.no_grad()
-def reverse_lookup(graph: BlockSymGraph, cells: int = 0,
-                   core=None) -> ReverseLookup:
-    """The transpose's lookup ids idx*K + rev_pos into the cube-order edge
-    table, or, with `core`, block-major ids into the block-major table
-    (edge (blk, r, k) of node m sits at row bm(m)*K + k, bm the node's
-    block-major position), in block-major destination order."""
+def reverse_lookup(graph: BlockSymGraph, route: Route) -> Route:
+    """The transpose's lookup: the direct route over the flat edge-table
+    ids (b, N*K, 1) int32 of the source edge of every destination edge --
+    idx*K + rev_pos into the cube-order table, or, on a masked `route`,
+    block-major ids into the block-major table (edge (blk, r, k) of node m
+    sits at row bm(m)*K + k, bm the node's block-major position), in
+    block-major destination order."""
     idx, rev_pos = graph.idx, graph.rev_pos
     b, n, k = idx.shape
-    if core is None:
+    if not route.block_major:
         ids = idx * k + rev_pos
     else:
         nodes = torch.arange(n, dtype=torch.int32, device=idx.device)
-        order = blocked.cube_to_blocks(nodes[None, :, None], cells, core).reshape(n)
+        order = route.to_blocks(nodes[None, :, None]).reshape(n)
         bm = torch.empty_like(order)
         bm[order.long()] = nodes
-        ids = blocked.cube_to_blocks(bm[idx.long()] * k + rev_pos, cells, core)
-    ids = ids.reshape(b, n * k, 1).to(torch.int32).contiguous()
-    return ReverseLookup(ids, graph_plan(ids))
+        ids = route.to_blocks(bm[idx.long()] * k + rev_pos)
+    return Route.direct(ids.reshape(b, n * k, 1).to(torch.int32).contiguous())
 
 
-def reverse_edges(h_a: torch.Tensor, lookup: ReverseLookup) -> torch.Tensor:
+def reverse_edges(h_a: torch.Tensor, lookup: Route) -> torch.Tensor:
     """(b, ..., K, C) block-A edge values -> the value of each edge's
     reverse, h_a[idx, rev_pos], same shape: one kernel B launch over the
     flattened table (its gradient: kernel C over the lookup's plan)."""
     shape = h_a.shape
     table = h_a.reshape(shape[0], -1, shape[-1])
-    return neighbor_gather(table, lookup.ids, plan=lookup.plan).reshape(shape)
+    return lookup.gather(table).reshape(shape)
 
 
 def block_edge_features_za(pos: torch.Tensor, graph: BlockSymGraph,
-                           za_disp: torch.Tensor, box: float, lattice=None,
-                           masks=None, plan=None) -> torch.Tensor:
+                           za_disp: torch.Tensor, box: float,
+                           route: Route) -> torch.Tensor:
     """(b, N, 3) pos -> (b, 2, N, K, 3) block edge features
     (shiftinv15.py:174-189): block A the min-image relative positions with
     the ZA displacement on the self edge, block B their negation, masked."""
-    nbr = neighbor_positions(pos, graph.idx, box, lattice, masks, plan)
+    nbr = neighbor_positions(pos, route, box)
     edges = min_image_diff(nbr, pos[:, :, None, :], box)
     ea = torch.cat([za_disp[:, :, None, :], edges[:, :, 1:, :]], dim=2)
     eb = (-edges) * graph.mask_b[..., None]
@@ -173,26 +166,24 @@ def _with_diag(out: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
     return torch.where(sel, diag[:, None, ..., None, :], out)
 
 
-def _row_pool(h: torch.Tensor, g: BlockSymGraph, lattice, plan) -> torch.Tensor:
+def _row_pool(h: torch.Tensor, g: BlockSymGraph, route: Route) -> torch.Tensor:
     """Mean over edges grouped by row id -> (b, N, C): block A sums over K,
     block B scatters its masked values (shiftinv15.py:196-205)."""
     sums = torch.sum(h[:, 0], dim=2)
-    sums = sums + neighbor_scatter_add(h[:, 1] * g.mask_b[..., None], g.idx,
-                                       lattice, None, plan)
+    sums = sums + route.scatter_add(h[:, 1] * g.mask_b[..., None])
     return sums / g.deg[..., None]
 
 
 def shift_inv_15op_layer(h: torch.Tensor, graph: BlockSymGraph,
-                         layer_params: Dict[str, torch.Tensor],
-                         is_last: bool = False, lattice=None, plan=None,
-                         lookup: ReverseLookup = None,
+                         layer_params: Dict[str, torch.Tensor], route: Route,
+                         lookup: Route, is_last: bool = False,
                          activation: Callable = None) -> torch.Tensor:
     """One 15-op layer in cube form (shiftinv15.py:281-345) on the direct,
     banded and block routes.  h (b, 2, N, K, C) masked block edge
     features; returns (b, 2, N, K, q), activated by `activation` unless
-    is_last, or (b, N, q) pooled over rows if is_last.  plan: the route's
-    plan (ops/banded.route_plan); lookup: the transpose's (reverse_lookup
-    of the cube ids).  Every addition keeps JAX's order and dtype
+    is_last, or (b, N, q) pooled over rows if is_last.  route: the step's
+    route of graph.idx; lookup: the transpose's (reverse_lookup of the
+    cube ids).  Every addition keeps JAX's order and dtype
     promotion; the diagonal contributions land on the self slots in the
     order of JAX's _at_dia adds.  The edge-wise work after the products
     and the gathers is one pass (ops/kernels/edge_epilogue: on a card one
@@ -202,7 +193,6 @@ def shift_inv_15op_layer(h: torch.Tensor, graph: BlockSymGraph,
     bias = layer_params["B"]     # (2, q): [diag, global]
     dt = h.dtype
     g = graph
-    lookup = lookup if lookup is not None else reverse_lookup(g)
 
     def mm(x, wi):
         return _mm(x, wi, dt)
@@ -213,8 +203,7 @@ def shift_inv_15op_layer(h: torch.Tensor, graph: BlockSymGraph,
     # both pools in one scatter: block A by column id, masked block B by
     # row id, channel-concatenated
     hb_m = h[:, 1] * mb
-    s2 = neighbor_scatter_add(torch.cat([h[:, 0].to(hb_m.dtype), hb_m], dim=-1),
-                              g.idx, lattice, None, plan)
+    s2 = route.scatter_add(torch.cat([h[:, 0].to(hb_m.dtype), hb_m], dim=-1))
     sum_a = torch.sum(h[:, 0], dim=2)
     h_r = (s2[..., :c_in] + torch.sum(hb_m, dim=2)) / g.deg[..., None]
     h_c = (sum_a + s2[..., c_in:]) / g.deg[..., None]
@@ -234,8 +223,8 @@ def shift_inv_15op_layer(h: torch.Tensor, graph: BlockSymGraph,
         t = mm(edge_transpose(h, reverse_edges(h[:, 0], lookup), g.mask_b),
                w[1])
         rev = None
-    g_col = neighbor_gather(x_col, g.idx, lattice, None, plan)
-    g_row = neighbor_gather(x_row, g.idx, lattice, None, plan)
+    g_col = route.gather(x_col)
+    g_row = route.gather(x_row)
     relu = activation is torch.relu and not is_last
     out = edge_epilogue(
         p0, t, rev, g_col, g_row, x_col, x_row,
@@ -244,15 +233,15 @@ def shift_inv_15op_layer(h: torch.Tensor, graph: BlockSymGraph,
         mm(h_p, w[11]), mm(h_p, w[12]),                          # 12, 13
         bias[0], bias[1], g.mask_b, relu=relu)
     if is_last:
-        return _row_pool(out, g, lattice, plan)
+        return _row_pool(out, g, route)
     if activation is not None and not relu:
         out = activation(out)
     return out
 
 
-def _shift_inv_15op_layer_blocks(hB: torch.Tensor, layer_params, masks,
-                                 lattice, mbB: torch.Tensor, deg: torch.Tensor,
-                                 live: torch.Tensor, lookup: ReverseLookup,
+def _shift_inv_15op_layer_blocks(hB: torch.Tensor, layer_params, route: Route,
+                                 mbB: torch.Tensor, deg: torch.Tensor,
+                                 live: torch.Tensor, lookup: Route,
                                  is_last: bool) -> torch.Tensor:
     """The 15-op layer on BLOCK-MAJOR edges hB (b, 2, NB, R, K, C) over the
     masked routes (shiftinv15.py:348-540, its "gather" form with the
@@ -264,23 +253,12 @@ def _shift_inv_15op_layer_blocks(hB: torch.Tensor, layer_params, masks,
     w = layer_params["W"]        # (15, C, q)
     bias = layer_params["B"]     # (2, q)
     dt = hB.dtype
-    core = blocked.lattice_core(lattice)
-    sf = blocked.lattice_self_free(lattice)
-    cl, win = lattice[0], lattice[1]
     c_in, q = hB.shape[-1], w.shape[-1]
+    to_cube, to_blocks = route.to_cube, route.to_blocks
+    scatter = route.scatter_edges        # block-major edges -> cube sums
 
     def mm(x, wi):
         return _mm(x, wi, dt)
-
-    def to_cube(xb):                     # (b, NB, R, C) -> (b, N, C)
-        return blocked.blocks_to_cube(xb, cl, core)
-
-    def to_blocks(x):                    # (b, N, C) -> (b, NB, R, C)
-        return blocked.cube_to_blocks(x, cl, core)
-
-    def scatter(e):                      # block-major edges -> cube sums
-        return blocked.masked_scatter_add_blocks(e, masks, cl, win, core=core,
-                                                 self_slot0=sf)
 
     pre_w = q < c_in
     if pre_w:
@@ -304,9 +282,7 @@ def _shift_inv_15op_layer_blocks(hB: torch.Tensor, layer_params, masks,
 
     x_col = mm(h_r, w[3]) + mm(h_c, w[7]) + mm(h_d, w[13])
     x_row = mm(h_r, w[4]) + mm(h_c, w[6]) + mm(h_d, w[14])
-    ggB = blocked.masked_gather_blocks(torch.cat([x_col, x_row], dim=-1),
-                                       masks, cl, win, core=core,
-                                       self_slot0=sf)   # (b, NB, R, K, 2q)
+    ggB = route.gather_edges(torch.cat([x_col, x_row], dim=-1))  # (b, NB, R, K, 2q)
     taB = reverse_edges(hinB[:, 0], lookup) * (1.0 - mb) + hinB[:, 1] * mb
     tB = torch.stack([taB, hinB[:, 0] * mb], dim=1)
     if not pre_w:
@@ -331,26 +307,23 @@ def _shift_inv_15op_layer_blocks(hB: torch.Tensor, layer_params, masks,
 
 
 def _shiftinv15_network_blocks(params, edges: torch.Tensor,
-                               graph: BlockSymGraph, lookup: ReverseLookup,
-                               activation: Callable, remat: bool, lattice,
-                               masks) -> torch.Tensor:
+                               graph: BlockSymGraph, route: Route,
+                               lookup: Route, activation: Callable,
+                               remat: bool) -> torch.Tensor:
     """Masked-route network (shiftinv15.py:543-581): block-major edge
     activations end to end, over the lookup of block-major ids."""
-    core = blocked.lattice_core(lattice)
-    cells = lattice[0]
     b, _, n, k, c = edges.shape
-    hB = blocked.cube_to_blocks(edges.reshape(b * 2, n, k * c), cells, core)
+    hB = route.to_blocks(edges.reshape(b * 2, n, k * c))
     nb, r = hB.shape[1], hB.shape[2]
     hB = hB.reshape(b, 2, nb, r, k, c)
-    mbB = blocked.cube_to_blocks(graph.mask_b.to(edges.dtype), cells, core)
+    mbB = route.to_blocks(graph.mask_b.to(edges.dtype))
     # f32 whatever the compute dtype: the pool divisions
     deg = graph.deg.to(torch.float32)
     live = torch.sum(deg, dim=-1)
     layer = remat_layer(_shift_inv_15op_layer_blocks, remat)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
-        hB = layer(hB, layer_params, masks, lattice, mbB, deg, live, lookup,
-                   is_last)
+        hB = layer(hB, layer_params, route, mbB, deg, live, lookup, is_last)
         if not is_last:
             hB = activation(hB)
         hB = tracing.probe(hB, f"layer{i}")
@@ -358,48 +331,39 @@ def _shiftinv15_network_blocks(params, edges: torch.Tensor,
 
 
 def shiftinv15_network(params: List[Dict[str, torch.Tensor]],
-                       edges: torch.Tensor, graph: BlockSymGraph,
-                       lookup: ReverseLookup,
-                       activation: Callable = torch.relu, remat: bool = False,
-                       lattice=None, masks=None, plan=None) -> torch.Tensor:
+                       edges: torch.Tensor, graph: BlockSymGraph, route: Route,
+                       lookup: Route, activation: Callable = torch.relu,
+                       remat: bool = False) -> torch.Tensor:
     """Layer stack (reference network_func_15op_shift_inv_za;
     shiftinv15.py:584-605) over the transpose's `lookup`
     (reverse_lookup): the block-major form on the masked routes, else
-    the cube form over `plan` (route_plan, built here when not given)."""
-    if masks is not None and lattice is not None:
-        return _shiftinv15_network_blocks(params, edges, graph, lookup,
-                                          activation, remat, lattice, masks)
-    if plan is None:
-        plan = route_plan(graph.idx, lattice)
+    the cube form."""
+    if route.block_major:
+        return _shiftinv15_network_blocks(params, edges, graph, route, lookup,
+                                          activation, remat)
     layer = remat_layer(shift_inv_15op_layer, remat)
     h = edges
     for i, layer_params in enumerate(params):
-        h = layer(h, graph, layer_params, is_last=i == len(params) - 1,
-                  lattice=lattice, plan=plan, lookup=lookup,
-                  activation=activation)
+        h = layer(h, graph, layer_params, route, lookup,
+                  i == len(params) - 1, activation)
         h = tracing.probe(h, f"layer{i}")
     return h
 
 
 def shiftinv15_model(params, pos: torch.Tensor, za_disp: torch.Tensor,
-                     idx: torch.Tensor, box: float,
-                     activation: Callable = torch.relu, remat: bool = False,
-                     lattice=None, masks=None) -> torch.Tensor:
+                     route: Route, box: float,
+                     activation: Callable = torch.relu,
+                     remat: bool = False) -> torch.Tensor:
     """Symmetrized graph + features + network (shiftinv15.py:608-624).
-    pos (b, N, 3) raw positions, za_disp (b, N, 3), idx (b, N, K) with
-    self at slot 0 -> (b, N, q).  The route's plan, the graph and the
-    transpose's lookup are built once, before the features; the direct
-    route's GraphPlan also serves the graph's degree scatter."""
-    plan = route_plan(idx, lattice, masks)
-    graph = build_block_sym_graph(
-        idx, plan if isinstance(plan, GraphPlan) else None)
-    if masks is not None and lattice is not None:
-        lookup = reverse_lookup(graph, lattice[0], blocked.lattice_core(lattice))
-    else:
-        lookup = reverse_lookup(graph)
+    pos (b, N, 3) raw positions, za_disp (b, N, 3), the route of idx
+    (b, N, K) with self at slot 0 (its plan built before) -> (b, N, q).
+    The graph and the transpose's lookup are built once, before the
+    features; the direct route's GraphPlan also serves the graph's degree
+    scatter."""
+    graph = build_block_sym_graph(route.idx, route.graph_plan)
+    lookup = reverse_lookup(graph, route)
     tracing.mark("plan")
-    feats = block_edge_features_za(pos, graph, za_disp, box, lattice, masks,
-                                   plan)
+    feats = block_edge_features_za(pos, graph, za_disp, box, route)
     tracing.mark("features")
-    return shiftinv15_network(params, feats.to(pos.dtype), graph, lookup,
-                              activation, remat, lattice, masks, plan)
+    return shiftinv15_network(params, feats.to(pos.dtype), graph, route,
+                              lookup, activation, remat)

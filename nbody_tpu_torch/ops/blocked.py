@@ -61,21 +61,6 @@ MASKED_CORE = (4, 8, 8)
 Core = Tuple[int, int, int]
 
 
-def lattice_core(lattice) -> Core:
-    """Core carried by a lattice tuple (cells, window[, core[, self_free]]);
-    2-tuples fall back to MASKED_CORE."""
-    if lattice is not None and len(lattice) > 2 and lattice[2]:
-        return tuple(lattice[2])
-    return MASKED_CORE
-
-
-def lattice_self_free(lattice) -> bool:
-    """Whether the positions were built with the self slot dropped
-    (block_positions drop_self_slot0=True): slot 0 of every edge row is the
-    particle itself, an identity copy outside the kernels."""
-    return lattice is not None and len(lattice) > 3 and bool(lattice[3])
-
-
 def block_geometry(cells: int, window: int, core: Sequence[int]):
     """-> ((nbx, nby, nbz) blocks per axis, (ex, ey, ez) patch extents)."""
     bx, by, bz = core
@@ -456,7 +441,7 @@ def block_gather(values: torch.Tensor, plan: BlockPlan, cells: int,
     """values (B, N, C), the step's block_index_plan over CORE blocks
     (every slot, the self edge included) -> (B, N, K, C) in
     values' dtype, over CORE blocks (kernel F; not differentiable:
-    ops/banded pairs it with block_scatter_add)."""
+    ops/route pairs it with block_scatter_add)."""
     core = CORE
     b, n, c = values.shape
     bx, by, bz = core

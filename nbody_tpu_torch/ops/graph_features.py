@@ -5,9 +5,8 @@ include_node_features, graph.py:245-275).
 Edges are min-image relative neighbor positions with the ZA displacement on
 the self-edge (slot 0).  The reference's deviation fix (min-image offsets
 across the periodic boundary instead of box-size jumps) is kept.  Neighbor
-access goes through ops/banded.py, whose ``lattice`` / ``masks`` arguments
-pick the route (direct, block or masked index) and whose ``plan`` the
-model shares across a step.
+access goes through the step's route (ops/route.py), which holds the
+neighbor ids and the plan the model shares across a step.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from nbody_tpu_torch.ops.banded import neighbor_gather
+from nbody_tpu_torch.ops.route import Route
 from nbody_tpu_torch.physics.pbc import min_image_diff
 
 
@@ -46,9 +45,10 @@ def _origin_displacement(pos: torch.Tensor, cells: int, box: float) -> torch.Ten
     return min_image_diff(pos, sites[None], box)
 
 
-def neighbor_positions(pos: torch.Tensor, idx: torch.Tensor, box: float,
-                       lattice=None, masks=None, plan=None) -> torch.Tensor:
-    """Neighbor positions (b, N, K, 3) with bf16-safe magnitudes.
+def neighbor_positions(pos: torch.Tensor, route: Route,
+                       box: float) -> torch.Tensor:
+    """Neighbor positions (b, N, K, 3) at route.idx, with bf16-safe
+    magnitudes.
 
     Gathering absolute coordinates (up to `box`) in bf16 would quantize
     them to ~0.25 units.  As in graph_features.py:45-67, the gathered
@@ -60,28 +60,24 @@ def neighbor_positions(pos: torch.Tensor, idx: torch.Tensor, box: float,
     copies rows in the input dtype."""
     cells = _cube_cells(pos.shape[-2])
     if not cells:
-        return neighbor_gather(pos, idx, lattice, None, plan)
-    nbr_disp = neighbor_gather(_origin_displacement(pos, cells, box), idx,
-                               lattice, masks, plan)
-    return lattice_site_positions(idx, cells, box, pos.dtype) + nbr_disp
+        return route.gather(pos)
+    nbr_disp = route.gather(_origin_displacement(pos, cells, box))
+    return lattice_site_positions(route.idx, cells, box, pos.dtype) + nbr_disp
 
 
-def edge_features_za(pos: torch.Tensor, idx: torch.Tensor,
-                     za_disp: torch.Tensor, box: float, lattice=None,
-                     masks=None, plan=None) -> torch.Tensor:
-    """pos (b, N, 3) raw positions, idx (b, N, K) with idx[..., 0] == self,
-    za_disp (b, N, 3) -> edges (b, N, K, 3).  plan: the step's plan of
-    ops/banded.route_plan, when the caller shares one."""
-    nbr = neighbor_positions(pos, idx, box, lattice, masks, plan)
+def edge_features_za(pos: torch.Tensor, route: Route,
+                     za_disp: torch.Tensor, box: float) -> torch.Tensor:
+    """pos (b, N, 3) raw positions, the route of idx (b, N, K) with
+    idx[..., 0] == self, za_disp (b, N, 3) -> edges (b, N, K, 3)."""
+    nbr = neighbor_positions(pos, route, box)
     edges = min_image_diff(nbr, pos[:, :, None, :], box)
     # self-edge (slot 0) carries the ZA displacement (graph.py:338-343)
     return torch.cat([za_disp[:, :, None, :], edges[:, :, 1:, :]], dim=2)
 
 
-def edge_features_with_nodes(pos: torch.Tensor, idx: torch.Tensor,
+def edge_features_with_nodes(pos: torch.Tensor, route: Route,
                              node_feats: torch.Tensor, box: float,
-                             za_disp: Optional[torch.Tensor] = None,
-                             lattice=None, masks=None, plan=None) -> torch.Tensor:
+                             za_disp: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Edges + broadcast node features (graph_features.py:84-123):
     (b, N, K, 3 + 2*C_node) = [rel_pos, node[row], node[col]].  With
     za_disp, the self-edge of the rel_pos block carries the ZA
@@ -91,12 +87,12 @@ def edge_features_with_nodes(pos: torch.Tensor, idx: torch.Tensor,
     if cells:
         payload = torch.cat([_origin_displacement(pos, cells, box), node_feats],
                             dim=-1)
-        g = neighbor_gather(payload, idx, lattice, masks, plan)
-        nbr = lattice_site_positions(idx, cells, box, pos.dtype) + g[..., :3]
+        g = route.gather(payload)
+        nbr = lattice_site_positions(route.idx, cells, box, pos.dtype) + g[..., :3]
         cols = g[..., 3:]
     else:
-        nbr = neighbor_gather(pos, idx)
-        cols = neighbor_gather(node_feats, idx)
+        nbr = route.gather(pos)
+        cols = route.gather(node_feats)
     edges = min_image_diff(nbr, pos[:, :, None, :], box)
     if za_disp is not None:
         edges = torch.cat([za_disp[:, :, None, :], edges[:, :, 1:, :]], dim=2)

@@ -1,7 +1,7 @@
 """The 4-op layer's epilogue (wrapper of csrc/epilogue4.cu), with its
 autograd Function and plain PyTorch twins.
 
-``epilogue4`` is what models/shiftinv.py's layer, in both network forms,
+``epilogue4`` is what models/shiftinv.py's layer, in both of its layouts,
 does to its edge tensors after the products and the neighbor gather:
 
     out = relu?(h1 + h2 + h3 + h4 + bias)

@@ -29,10 +29,10 @@ from nbody_tpu.ops.pallas.block_kernels import (block_gather_pallas,
 
 from nbody_tpu_torch.data.dataset import features_from_raw
 from nbody_tpu_torch.data.synthetic import synthetic_raw_cubes
-from nbody_tpu_torch.ops import banded as tb
 from nbody_tpu_torch.ops import blocked as tbl
 from nbody_tpu_torch.ops.kernels import block_kernels as BK
 from nbody_tpu_torch.ops.kernels import idx_kernels as IK
+from nbody_tpu_torch.ops.route import Route
 
 torch.set_num_threads(1)
 
@@ -244,29 +244,27 @@ def test_masked_route_grads_match_jax():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_block_route_ops_match_indexing(dtype):
-    """The --impl block route of ops/banded (kernels F/G with fast = bf16
+    """The --impl block route of ops/route (kernels F/G with fast = bf16
     input, exact either way) == direct indexing, with each op the other's
     gradient."""
     idx = _graph(seed=11)
     tdt = getattr(torch, dtype)
     v = _t(_rand((B, N, 3), 50, True)).to(tdt).requires_grad_()
     ev = _t(_rand((B, N, K, 3), 51, True)).to(tdt).requires_grad_()
-    lat = (CELLS, W)
-    ti = _t(idx)
-    g = tb.neighbor_gather(v, ti, lat)
+    block, direct = Route.block(_t(idx), CELLS, W), Route.direct(_t(idx))
+    g = block.gather(v)
     assert g.dtype == tdt
     np.testing.assert_array_equal(g.detach().float().numpy(),
-                                  tb.neighbor_gather(v, ti).detach().float().numpy())
-    s = tb.neighbor_scatter_add(ev, ti, lat)
+                                  direct.gather(v).detach().float().numpy())
+    s = block.scatter_add(ev)
     np.testing.assert_allclose(s.detach().float().numpy(),
-                               tb.neighbor_scatter_add(ev, ti).detach().float().numpy(),
+                               direct.scatter_add(ev).detach().float().numpy(),
                                rtol=2 ** -7, atol=1e-5)
     ct = torch.ones_like(g)
     (gv,) = torch.autograd.grad(g, v, ct)
     np.testing.assert_array_equal(gv.float().numpy()[..., 0],
-                                  tb.neighbor_counts(ti).numpy())
-    np.testing.assert_array_equal(
-        tb.neighbor_counts(ti, lattice=lat).numpy(), tb.neighbor_counts(ti).numpy())
+                                  direct.counts().numpy())
+    np.testing.assert_array_equal(block.counts().numpy(), direct.counts().numpy())
 
 
 def test_select_wrappers_refuse_bad_inputs():
@@ -410,25 +408,42 @@ def test_plan_counts_equal_the_scatter_of_ones(core):
     full = tbl.block_index_plan(_t(idx), CELLS, W, core)
     np.testing.assert_array_equal(
         tbl.plan_counts(full, CELLS, W, core).numpy(),
-        tb.neighbor_counts(_t(idx)).numpy())
+        Route.direct(_t(idx)).counts().numpy())
 
 
-@pytest.mark.parametrize("route", ["direct", "block", "masked"])
-def test_route_plan_is_the_routes_plan(route):
-    """banded.route_plan, which every forward calls once, builds the direct
-    route's GraphPlan, the block route's BlockPlan of CORE blocks, and
-    nothing on a masked route (its plan travels as the masks)."""
+ROUTE_CONFIGS = {"direct": {}, "banded": {"neighbor_impl": "banded"},
+                 "block": {"neighbor_impl": "block"}, "index": {"mask_dtype": "index"},
+                 "int8": {"mask_dtype": "int8"}, "int4": {"mask_dtype": "int4"}}
+
+
+# the masked index route keeps its case's old name, "masked"
+@pytest.mark.parametrize("kind", list(ROUTE_CONFIGS),
+                         ids=["masked" if k == "index" else k for k in ROUTE_CONFIGS])
+def test_route_plan_is_the_routes_plan(kind):
+    """The route registry._make_route builds once a forward holds its
+    kind's one plan: the GraphPlan on the direct and banded routes (also
+    its graph_plan), the BlockPlan of CORE blocks on the block route, the
+    BlockPlan of patch positions (self slot dropped) on the index route
+    and the int8 / packed int4 masks on theirs."""
+    from nbody_tpu_torch import config as C
+    from nbody_tpu_torch.models import registry
     from nbody_tpu_torch.ops.kernels.banded_kernels import graph_plan
     idx = _t(_graph())
-    if route == "direct":
-        got, want = tb.route_plan(idx), graph_plan(idx)
-    elif route == "block":
-        got = tb.route_plan(idx, (CELLS, W))
+    cfg = C.ModelConfig(k_neighbors=K, knn_window=W, **ROUTE_CONFIGS[kind])
+    route = registry._make_route(cfg, CELLS, N, idx, torch.bfloat16)
+    assert route.kind == kind and route.idx is idx
+    if kind in ("direct", "banded"):
+        want = graph_plan(idx)
+    elif kind == "block":
         want = tbl.block_index_plan(idx, CELLS, W, tbl.CORE)
+    elif kind == "index":
+        want = tbl.block_index_plan(idx, CELLS, W, (4, 8, 8), drop_self_slot0=True)
     else:
-        lat = (CELLS, W, (4, 8, 8), True)
-        masks = tbl.block_index_plan(idx, CELLS, W, (4, 8, 8), drop_self_slot0=True)
-        assert tb.route_plan(idx, lat, masks) is None
+        want = tbl.block_masks(idx, CELLS, W, core=(4, 8, 8), drop_self_slot0=True,
+                               dtype=torch.int8 if kind == "int8" else "int4")
+        assert torch.equal(route.plan, want) and route.graph_plan is None
         return
+    got = route.plan
     assert type(got) is type(want)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert route.graph_plan is (got if kind in ("direct", "banded") else None)

@@ -1,9 +1,10 @@
 """The 4-op layer's fused epilogue (ops/kernels/epilogue4): its plain twin
 against the chain it replaces, its autograd Function against autograd of
-that chain, the kernel's operand check, and both network forms of
-models/shiftinv.py against the layer code before the fusion (the chain
-h1 + h2 + h3 + h4 + bias, then the activation), with --remat and with an
-activation other than relu.  On the CPU every wrapper takes its twin; the
+that chain, the kernel's operand check, and the network of
+models/shiftinv.py in both its layouts (cube, block-major) against the
+layer code before the fusion (the chain h1 + h2 + h3 + h4 + bias, then the
+activation) in its two forms, with --remat and with an activation other
+than relu.  On the CPU every wrapper takes its twin; the
 kernels themselves run in chip_smoke.py (phase 19).
 """
 
@@ -20,8 +21,6 @@ from nbody_tpu_torch.models import shiftinv as ts
 from nbody_tpu_torch.models.base import remat_layer
 from nbody_tpu_torch.models.registry import build_model
 from nbody_tpu_torch.ops import blocked
-from nbody_tpu_torch.ops.banded import (neighbor_counts, neighbor_gather,
-                                        neighbor_segment_mean, route_plan)
 from nbody_tpu_torch.ops.kernels import epilogue4 as E4
 
 torch.set_num_threads(1)
@@ -139,21 +138,20 @@ def test_backward_twin_sums_in_f32(dtype):
 
 # ------------------------------------------ the layer code before the fusion
 
-def _parent_layer(h, idx, layer_params, is_last=False, counts=None,
-                  lattice=None, masks=None, plan=None):
+def _parent_layer(h, route, layer_params, is_last=False, counts=None):
     w, bias = layer_params["W"], layer_params["B"][0]
     c_in, q = w.shape[1], w.shape[2]
+
+    def seg_mean(e):
+        return route.scatter_add(e) / torch.clamp_min(counts, 1.0)[..., None]
+
     if q < c_in:
         h12 = torch.matmul(h, torch.cat([w[0], w[1]], dim=1))
         h1, hw = h12[..., :q], h12[..., q:]
-        h2 = neighbor_gather(neighbor_segment_mean(hw, idx, counts, lattice,
-                                                   masks, plan),
-                             idx, lattice, masks, plan)
+        h2 = route.gather(seg_mean(hw))
     else:
         h1 = torch.matmul(h, w[0])
-        pooled_rows = neighbor_segment_mean(h, idx, counts, lattice, masks, plan)
-        h2 = torch.matmul(neighbor_gather(pooled_rows, idx, lattice, masks,
-                                          plan), w[1])
+        h2 = torch.matmul(route.gather(seg_mean(h)), w[1])
     pooled_cols = torch.mean(h, dim=2)
     h3 = torch.matmul(pooled_cols, w[2])[:, :, None, :]
     h4 = torch.matmul(torch.mean(pooled_cols, dim=1), w[3])[:, None, None, :]
@@ -161,35 +159,30 @@ def _parent_layer(h, idx, layer_params, is_last=False, counts=None,
     return torch.mean(h_out, dim=2) if is_last else h_out
 
 
-def _parent_network(params, edges, idx, activation=torch.relu, lattice=None,
-                    masks=None, plan=None, remat=False):
+def _parent_network(params, edges, route, activation=torch.relu, remat=False):
     h = edges
-    if plan is None:
-        plan = route_plan(idx, lattice, masks)
-    counts = neighbor_counts(idx, edges.dtype, lattice, masks, plan)
+    counts = route.counts(edges.dtype)
     layer = remat_layer(_parent_layer, remat)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
-        h = layer(h, idx, layer_params, is_last=is_last, counts=counts,
-                  lattice=lattice, masks=masks, plan=plan)
+        h = layer(h, route, layer_params, is_last=is_last, counts=counts)
         if not is_last:
             h = activation(h)
     return h
 
 
-def _parent_layer_blocks(hB, layer_params, masks, cells, window, counts,
-                         is_last, core, self_free):
+def _parent_layer_blocks(hB, layer_params, route, counts, is_last):
     w, bias = layer_params["W"], layer_params["B"][0]
     c_in, q = w.shape[1], w.shape[2]
+    geom = dict(cells=route.cells, window=route.window, core=route.core,
+                self_slot0=True)
 
     def seg_mean(e):
-        s = blocked.masked_scatter_add_blocks(e, masks, cells, window,
-                                              core=core, self_slot0=self_free)
+        s = blocked.masked_scatter_add_blocks(e, route.plan, **geom)
         return s / torch.clamp_min(counts, 1.0)[..., None]
 
     def gather(x):
-        return blocked.masked_gather_blocks(x, masks, cells, window, core=core,
-                                            self_slot0=self_free)
+        return blocked.masked_gather_blocks(x, route.plan, **geom)
 
     if q < c_in:
         h12 = torch.matmul(hB, torch.cat([w[0], w[1]], dim=1))
@@ -205,28 +198,33 @@ def _parent_layer_blocks(hB, layer_params, masks, cells, window, counts,
     return torch.mean(h_out, dim=3) if is_last else h_out
 
 
-def _parent_network_blocks(params, edges, masks, lattice, activation,
-                           remat=False):
-    cells, window = lattice[0], lattice[1]
-    core = blocked.lattice_core(lattice)
-    self_free = blocked.lattice_self_free(lattice)
+def _parent_network_blocks(params, edges, route, activation, remat=False):
+    cells, core = route.cells, route.core
     hB = blocked.edges_cube_to_blocks(edges, cells, core=core)
-    counts = blocked.masked_counts(masks, cells, window, core, self_free,
+    counts = blocked.masked_counts(route.plan, cells, route.window, core, True,
                                    edges.dtype)
     layer = remat_layer(_parent_layer_blocks, remat)
     for i, layer_params in enumerate(params):
         is_last = i == len(params) - 1
-        hB = layer(hB, layer_params, masks, cells, window, counts, is_last,
-                   core, self_free)
+        hB = layer(hB, layer_params, route, counts, is_last)
         if not is_last:
             hB = activation(hB)
     return blocked.nodes_blocks_to_cube(hB, cells, core=core)
 
 
-def _route(form):
-    """The model flags of a network form: the block-major form on the
-    masked index route, the cube form on the direct one."""
-    return {"mask_dtype": "index"} if form == "block" else {}
+def _parent_networks(params, edges, route, activation, remat=False):
+    """The parent's two network forms: block-major on the masked routes,
+    cube on the others."""
+    form = _parent_network_blocks if route.block_major else _parent_network
+    return form(params, edges, route, activation, remat)
+
+
+# the routes of the network forms: the cube form on the direct and block
+# routes, the block-major form on the masked index and int8 routes
+ROUTES = {"cube": {}, "cube_blockroute": {"neighbor_impl": "block"},
+          "block": {"mask_dtype": "index"}, "block_int8": {"mask_dtype": "int8"}}
+RECORDED = {"cube": "direct", "cube_blockroute": "block", "block": "masked",
+            "block_int8": "masked"}
 
 
 def _forward(model, x_in, activation):
@@ -235,26 +233,25 @@ def _forward(model, x_in, activation):
     dt = model.dtype
     idx = model.knn_fn(x_in)
     pos, za = registry._graph_geometry(x_in, model.box)
-    masks, lattice = registry._make_masks(model.cfg, model.cells, x_in.shape[-2],
-                                          idx, dt, model.impl_record)
-    return ts.shiftinv_model(model.params.layers(dt), pos.to(dt), za.to(dt), idx,
-                             model.box, activation=activation, lattice=lattice,
-                             masks=masks, remat=model.cfg.remat).float()
+    route = registry._make_route(model.cfg, model.cells, x_in.shape[-2], idx, dt)
+    model.impl_record = route.record()
+    return ts.shiftinv_model(model.params.layers(dt), pos.to(dt), za.to(dt),
+                             route, model.box, activation=activation,
+                             remat=model.cfg.remat).float()
 
 
 def _run(form, dtype, remat, activation, parent, monkeypatch):
     """Prediction, loss and parameter gradients of one step, with the
     network of this tree or (parent) the layer code before the fusion."""
     if parent:
-        monkeypatch.setattr(ts, "shiftinv_network", _parent_network)
-        monkeypatch.setattr(ts, "_shiftinv_network_blocks", _parent_network_blocks)
+        monkeypatch.setattr(ts, "shiftinv_network", _parent_networks)
     x_in, y = split_batch(torch.from_numpy(features_from_raw(
         synthetic_raw_cubes(2, CELLS, seed=0))))
     model = build_model(C.ModelConfig(
         channels=CHANNELS, k_neighbors=K, knn_window=2, seed=3, dtype=dtype,
-        remat=remat, **_route(form)), box=4.0 * CELLS, device="cpu")
+        remat=remat, **ROUTES[form]), box=4.0 * CELLS, device="cpu")
     pred = _forward(model, x_in, activation)
-    assert model.impl_record["impl"] == ("masked" if form == "block" else "direct")
+    assert model.impl_record["impl"] == RECORDED[form]
     (pred * y).sum().backward()
     monkeypatch.undo()
     return pred.detach(), [p.grad for p in model.params.parameters()]
@@ -268,11 +265,15 @@ def _run(form, dtype, remat, activation, parent, monkeypatch):
     ("block", "bfloat16", False, torch.relu),
     ("block", "bfloat16", True, torch.relu),
     ("block", "bfloat16", False, torch.tanh),
+    ("cube_blockroute", "float32", False, torch.relu),
+    ("cube_blockroute", "bfloat16", True, torch.relu),
+    ("block_int8", "bfloat16", False, torch.relu),
 ])
 def test_network_matches_the_layer_before_the_fusion(form, dtype, remat,
                                                      activation, monkeypatch):
-    """Both network forms with the fused epilogue against the same network
-    on the parent's layer code (the chain, the activation after it): the
+    """The one network body with the fused epilogue, on the direct, block,
+    index and int8 routes, against the same network on the parent's two
+    forms of the layer code (the chain, the activation after it): the
     output bit-equal, every parameter gradient within f32 tolerance (bf16:
     the fused backward sums its broadcast gradients in f32)."""
     got, grads = _run(form, dtype, remat, activation, False, monkeypatch)
@@ -299,7 +300,7 @@ def test_step_and_forward_count_the_epilogue(form, monkeypatch):
         synthetic_raw_cubes(2, CELLS, seed=1))))
     model = build_model(C.ModelConfig(
         channels=CHANNELS, k_neighbors=K, knn_window=2, dtype="bfloat16",
-        **_route(form)), box=4.0 * CELLS, device="cpu")
+        **ROUTES[form]), box=4.0 * CELLS, device="cpu")
     layers = len(CHANNELS) - 1
 
     def moved(fn):
@@ -325,9 +326,9 @@ def _operands(q=8, dt=torch.float32, **odd):
 
 
 def test_kernel_check_takes_the_model_operands():
-    """The check passes what both network forms hand the kernel: one f32 or
-    bf16 dtype, the cube form's and the block-major form's shapes, a
-    strided h1."""
+    """The check passes what the network hands the kernel in both
+    layouts: one f32 or bf16 dtype, the cube and the block-major shapes,
+    a strided h1."""
     for dt in (torch.float32, torch.bfloat16):
         E4._check(*_operands(64, dt))
         E4._check(*_operands(256, dt))

@@ -174,26 +174,27 @@ def test_int_core_choice_under_cap(monkeypatch, mask_dtype, cap, want):
     idx = np.zeros((2, CELLS ** 3, K), np.int32)
     jcfg = JC.ModelConfig(family="shiftinv", k_neighbors=K, knn_window=2,
                           neighbor_impl="masked", mask_dtype=mask_dtype)
-    jrec, rec = {}, {}
+    jrec = {}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         jmasks, _ = jregistry._make_masks(jcfg, (CELLS, 2), jnp.asarray(idx),
                                           jnp.bfloat16, jrec)
-        masks, lat = registry._make_masks(
+        route = registry._make_route(
             C.ModelConfig(k_neighbors=K, knn_window=2, mask_dtype=mask_dtype),
-            CELLS, CELLS ** 3, torch.from_numpy(idx), torch.bfloat16, rec)
+            CELLS, CELLS ** 3, torch.from_numpy(idx), torch.bfloat16)
+    rec, masks = route.record(), route.plan
     if want is None:
         # JAX records no core for its block fallback; the port names the
         # block route's own
-        assert jmasks is None and masks is None
+        assert jmasks is None and route.kind == "block"
         assert jrec["impl"] == rec["impl"] == "block" and jrec["core"] is None
-        assert rec["core"] == [4, 4, 8] and lat == (CELLS, 2)
+        assert rec["core"] == [4, 4, 8] and (route.cells, route.window) == (CELLS, 2)
         assert "cap" in rec["downgrade"]
         assert sum("falling back" in str(w.message) for w in caught) == 2
         return
     assert rec["core"] == jrec["core"] == want
-    assert rec["mask_dtype"] == jrec["mask_dtype"] == mask_dtype
-    assert lat == (CELLS, 2, tuple(want), True)
+    assert rec["mask_dtype"] == jrec["mask_dtype"] == mask_dtype == route.kind
+    assert (route.cells, route.window, route.core) == (CELLS, 2, tuple(want))
     assert masks.shape[:3] == jmasks.shape[:3]
     assert mask_kernels.patch_width(masks) == jmasks.shape[3]
     assert rec["mask_bytes"] == masks.numel() * masks.element_size()

@@ -1,6 +1,6 @@
-"""Port parity: neighbor gather / scatter-add (kernels B and C's plain
-versions and their autograd Functions), the graph plan kernel C runs over,
-and the edge features.
+"""Port parity: neighbor gather / scatter-add on the direct route
+(ops/route.py: kernels B and C's plain versions and their autograd
+Functions), the graph plan kernel C runs over, and the edge features.
 
 Gather in f32 is exact: equal to nbody_tpu's neighbor_gather and to the
 Pallas banded gather in interpret mode (fast=False).  Scatter, counts and
@@ -24,10 +24,10 @@ from nbody_tpu.ops.pallas.banded_kernels import (banded_gather_pallas,
 
 from nbody_tpu_torch.data.dataset import features_from_raw
 from nbody_tpu_torch.data.synthetic import synthetic_raw_cubes
-from nbody_tpu_torch.ops import banded as tb
 from nbody_tpu_torch.ops import graph_features as tgf
 from nbody_tpu_torch.ops.kernels import banded_kernels as K
 from nbody_tpu_torch.ops.kernels import build
+from nbody_tpu_torch.ops.route import Route
 
 torch.set_num_threads(1)
 
@@ -55,7 +55,7 @@ def _grid01():
 @pytest.mark.parametrize("c", [1, 3, 16])
 def test_gather_exact_f32(c):
     values, idx, _ = _inputs(c)
-    got = tb.neighbor_gather(torch.from_numpy(values), torch.from_numpy(idx))
+    got = Route.direct(torch.from_numpy(idx)).gather(torch.from_numpy(values))
     want = np.asarray(jb.neighbor_gather(jnp.asarray(values), jnp.asarray(idx)))
     np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_array_equal(got.numpy(), values[np.arange(2)[:, None, None], idx])
@@ -67,7 +67,7 @@ def test_gather_exact_f32(c):
 def test_gather_bf16_is_a_copy():
     values, idx, _ = _inputs(8)
     tv = torch.from_numpy(values).to(torch.bfloat16)
-    got = tb.neighbor_gather(tv, torch.from_numpy(idx))
+    got = Route.direct(torch.from_numpy(idx)).gather(tv)
     assert got.dtype == torch.bfloat16
     want = jb.neighbor_gather(jnp.asarray(values).astype(jnp.bfloat16),
                               jnp.asarray(idx))
@@ -78,7 +78,7 @@ def test_gather_bf16_is_a_copy():
 @pytest.mark.parametrize("c", [1, 3, 16])
 def test_scatter_add_matches(c):
     _, idx, ev = _inputs(c)
-    got = tb.neighbor_scatter_add(torch.from_numpy(ev), torch.from_numpy(idx))
+    got = Route.direct(torch.from_numpy(idx)).scatter_add(torch.from_numpy(ev))
     want = np.asarray(jb.neighbor_scatter_add(jnp.asarray(ev), jnp.asarray(idx)))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
     ref = np.zeros((2, N, c), np.float64)
@@ -93,24 +93,25 @@ def test_scatter_add_matches(c):
 
 def test_counts_and_segment_mean_match():
     _, idx, ev = _inputs(4)
-    ti, te = torch.from_numpy(idx), torch.from_numpy(ev)
-    cnt = tb.neighbor_counts(ti)
+    route, te = Route.direct(torch.from_numpy(idx)), torch.from_numpy(ev)
+    cnt = route.counts()
     np.testing.assert_array_equal(
         cnt.numpy(), np.asarray(jb.neighbor_counts(jnp.asarray(idx))))
     np.testing.assert_array_equal(cnt.sum(dim=1).numpy(), [N * 6, N * 6])
     want = np.asarray(jb.neighbor_segment_mean(jnp.asarray(ev), jnp.asarray(idx)))
-    for counts in (None, cnt):
-        got = tb.neighbor_segment_mean(te, ti, counts=counts)
+    for counts in (cnt, route.counts(te.dtype)):
+        got = route.segment_mean(te, counts)
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 def test_gradcheck_f64():
     rng = np.random.default_rng(3)
-    idx = torch.from_numpy(rng.integers(0, 5, size=(2, 5, 3)).astype(np.int32))
+    route = Route.direct(torch.from_numpy(
+        rng.integers(0, 5, size=(2, 5, 3)).astype(np.int32)))
     v = torch.from_numpy(rng.normal(size=(2, 5, 2))).requires_grad_()
     e = torch.from_numpy(rng.normal(size=(2, 5, 3, 2))).requires_grad_()
-    assert torch.autograd.gradcheck(lambda x: tb.neighbor_gather(x, idx), (v,))
-    assert torch.autograd.gradcheck(lambda x: tb.neighbor_scatter_add(x, idx), (e,))
+    assert torch.autograd.gradcheck(route.gather, (v,))
+    assert torch.autograd.gradcheck(route.scatter_add, (e,))
 
 
 def test_grads_match_jax_vjp():
@@ -119,11 +120,9 @@ def test_grads_match_jax_vjp():
     ct_s = np.random.default_rng(7).normal(size=values.shape).astype(np.float32)
     tv = torch.from_numpy(values).requires_grad_()
     te = torch.from_numpy(ev).requires_grad_()
-    ti = torch.from_numpy(idx)
-    (gv,) = torch.autograd.grad(tb.neighbor_gather(tv, ti),
-                                tv, torch.from_numpy(ct_g))
-    (ge,) = torch.autograd.grad(tb.neighbor_scatter_add(te, ti),
-                                te, torch.from_numpy(ct_s))
+    route = Route.direct(torch.from_numpy(idx))
+    (gv,) = torch.autograd.grad(route.gather(tv), tv, torch.from_numpy(ct_g))
+    (ge,) = torch.autograd.grad(route.scatter_add(te), te, torch.from_numpy(ct_s))
     _, vjp_g = jax.vjp(lambda v: jb.neighbor_gather(v, jnp.asarray(idx)),
                        jnp.asarray(values))
     _, vjp_s = jax.vjp(lambda e: jb.neighbor_scatter_add(e, jnp.asarray(idx)),
@@ -174,7 +173,7 @@ def test_edge_features_za_match(dtype):
     want = jgf.edge_features_za(jnp.asarray(pos).astype(jdt), jnp.asarray(idx),
                                 jnp.asarray(za).astype(jdt), box)
     got = tgf.edge_features_za(torch.from_numpy(pos).to(tdt),
-                               torch.from_numpy(idx),
+                               Route.direct(torch.from_numpy(idx)),
                                torch.from_numpy(za).to(tdt), box)
     assert got.dtype == tdt and got.shape == (2, N, 6, 3)
     want = np.asarray(want.astype(jnp.float32))
@@ -213,7 +212,8 @@ def test_graph_plan_matches_numpy(case):
         np.testing.assert_array_equal(np.asarray(jb.neighbor_counts(jnp.asarray(idx))),
                                       want)
     np.testing.assert_array_equal(plan.in_degree(b, n).numpy(), want)
-    np.testing.assert_array_equal(tb.neighbor_counts(torch.from_numpy(idx)).numpy(), want)
+    np.testing.assert_array_equal(Route.direct(torch.from_numpy(idx)).counts().numpy(),
+                                  want)
 
 
 @pytest.mark.parametrize("c", [1, 3, 16, 64])
@@ -246,7 +246,7 @@ def test_scatter_drops_out_of_range_targets():
     ref = np.zeros((2, N, 3), np.float32)
     for bi in range(2):
         np.add.at(ref[bi], bad[bi][keep[bi]], ev[bi][keep[bi]])
-    got = tb.neighbor_scatter_add(torch.from_numpy(ev), torch.from_numpy(bad))
+    got = Route.direct(torch.from_numpy(bad)).scatter_add(torch.from_numpy(ev))
     np.testing.assert_array_equal(got.numpy(), ref)
 
 

@@ -25,6 +25,7 @@ from nbody_tpu_torch import config as C
 from nbody_tpu_torch.models import shiftinv as ts
 from nbody_tpu_torch.models.base import params_from_jax
 from nbody_tpu_torch.models.registry import build_model
+from nbody_tpu_torch.ops.route import Route
 from nbody_tpu_torch.physics.losses import loss_za
 
 torch.set_num_threads(1)
@@ -126,9 +127,10 @@ def test_layer_matches_f32(c_in, q, is_last):
     want = js.shift_inv_layer(jnp.asarray(h), jnp.asarray(idx),
                               {"W": jnp.asarray(w), "B": jnp.asarray(b)},
                               is_last=is_last)
-    got = ts.shift_inv_layer(torch.from_numpy(h), torch.from_numpy(idx),
+    route = Route.direct(torch.from_numpy(idx))
+    got = ts.shift_inv_layer(torch.from_numpy(h), route,
                              {"W": torch.from_numpy(w), "B": torch.from_numpy(b)},
-                             is_last=is_last)
+                             route.counts(), is_last=is_last)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
 
@@ -189,10 +191,10 @@ def _network_inputs(dtype, seed=7):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_network_over_one_graph_plan_matches_jax(dtype, monkeypatch):
-    """shiftinv_network builds the graph plan once and every scatter of the
-    forward and the backward runs over it; outputs and gradients (edges
-    and params) match JAX's shiftinv_network."""
-    from nbody_tpu_torch.ops import banded as tband
+    """The direct route builds the graph plan once and every scatter of the
+    network's forward and backward runs over it; outputs and gradients
+    (edges and params) match JAX's shiftinv_network."""
+    from nbody_tpu_torch.ops import route as troute
     from nbody_tpu_torch.ops.kernels import banded_kernels as tk
     built, plan_of = [], tk.graph_plan
 
@@ -200,7 +202,7 @@ def test_network_over_one_graph_plan_matches_jax(dtype, monkeypatch):
         built.append(idx.shape)
         return plan_of(idx)
 
-    for mod in (tband, tk):
+    for mod in (troute, tk):
         monkeypatch.setattr(mod, "graph_plan", counted_plan)
     params, edges, idx, ct = _network_inputs(dtype)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
@@ -216,7 +218,7 @@ def test_network_over_one_graph_plan_matches_jax(dtype, monkeypatch):
     tp = [{k: torch.from_numpy(v).to(tdt).requires_grad_() for k, v in p.items()}
           for p in params]
     te = torch.from_numpy(edges).to(tdt).requires_grad_()
-    out = ts.shiftinv_network(tp, te, torch.from_numpy(idx))
+    out = ts.shiftinv_network(tp, te, troute.Route.direct(torch.from_numpy(idx)))
     loss = torch.sum(out.float() * torch.from_numpy(ct))
     loss.backward()
     tval = float(loss.detach())

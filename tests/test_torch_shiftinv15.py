@@ -57,8 +57,8 @@ from nbody_tpu_torch.models import shiftinv15 as T15
 from nbody_tpu_torch.models.base import params_from_jax
 from nbody_tpu_torch.models.registry import build_model
 from nbody_tpu_torch.ops import blocked
-from nbody_tpu_torch.ops.banded import neighbor_gather, neighbor_scatter_add
 from nbody_tpu_torch.ops.kernels import edge_epilogue as EE
+from nbody_tpu_torch.ops.route import Route
 from nbody_tpu_torch.physics.losses import loss_za
 from nbody_tpu_torch.train.rollout import make_rollout, stack_params
 from nbody_tpu_torch.train.trainer import Trainer
@@ -135,12 +135,13 @@ def test_reverse_lookup_is_the_transpose():
     idx = _lattice_idx(seed=2)
     _, g = _graphs(idx)
     h = torch.randn(2, CELLS ** 3, K, 5, generator=torch.Generator().manual_seed(0))
-    got = T15.reverse_edges(h, T15.reverse_lookup(g))
+    lookup = T15.reverse_lookup(g, Route.direct(g.idx))
+    got = T15.reverse_edges(h, lookup)
     b = torch.arange(2)[:, None, None]
     np.testing.assert_array_equal(got.numpy(),
                                   h[b, g.idx.long(), g.rev_pos.long()].numpy())
     mutual = (g.mask_b == 0)[..., None].expand_as(h)
-    twice = T15.reverse_edges(got, T15.reverse_lookup(g))
+    twice = T15.reverse_edges(got, lookup)
     assert torch.equal(twice[mutual], h[mutual])
 
 
@@ -157,8 +158,9 @@ def test_cube_layer_matches_jax_f32(c_in, q, is_last):
               "B": rng.normal(size=(2, q)).astype(np.float32)}
     want = jax.jit(lambda hh, p: J15.shift_inv_15op_layer(hh, jg, p, is_last))(
         jnp.asarray(h), _jt(params))
-    got = T15.shift_inv_15op_layer(torch.from_numpy(h), tg, _tt(params),
-                                   is_last=is_last)
+    route = Route.direct(tg.idx)
+    got = T15.shift_inv_15op_layer(torch.from_numpy(h), tg, _tt(params), route,
+                                   T15.reverse_lookup(tg, route), is_last=is_last)
     assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)
@@ -179,8 +181,10 @@ def test_cube_layer_matches_flat_oracle():
         jnp.asarray(pos), jnp.asarray(idx), jnp.asarray(za), box))
     feats = feats * np.asarray(g.valid)[:, None]
     tg = T15.build_block_sym_graph(torch.from_numpy(idx)[None])
+    route = Route.direct(tg.idx)
+    lookup = T15.reverse_lookup(tg, route)
     fb = T15.block_edge_features_za(torch.from_numpy(pos)[None], tg,
-                                    torch.from_numpy(za)[None], box)
+                                    torch.from_numpy(za)[None], box, route)
     nk = n * k
     np.testing.assert_allclose(fb[0, 0].reshape(nk, 3).numpy(), feats[:nk], atol=1e-5)
     np.testing.assert_allclose(fb[0, 1].reshape(nk, 3).numpy(), feats[nk:], atol=1e-5)
@@ -189,7 +193,8 @@ def test_cube_layer_matches_flat_oracle():
             f, gg, p, is_last=is_last))(
                 jnp.asarray(feats)[None],
                 jax.tree_util.tree_map(lambda x: x[None], g), _jt(params)))[0]
-        got = T15.shift_inv_15op_layer(fb, tg, _tt(params), is_last=is_last)[0].numpy()
+        got = T15.shift_inv_15op_layer(fb, tg, _tt(params), route, lookup,
+                                       is_last=is_last)[0].numpy()
         if is_last:
             np.testing.assert_allclose(got, flat, rtol=1e-4, atol=1e-5)
         else:
@@ -241,17 +246,14 @@ def _block_layer_pair(route, c_in, q, dtype):
     want = jax.jit(lambda hh, p: J15._shift_inv_15op_layer_blocks(
         hh, p, masks, lat, selB, j_mbB, jg.deg, jnp.sum(jg.deg, -1), is_last))(
             j_hB, jax.tree_util.tree_map(lambda a: jnp.asarray(a, jdt), params))
-    t_idx = torch.from_numpy(idx)
-    t_masks = (blocked.block_index_plan(t_idx, CELLS, 2, BLOCK_CORE, drop_self_slot0=True)
-               if route == "index" else
-               blocked.block_masks(t_idx, CELLS, 2, torch.int8, BLOCK_CORE, True))
+    t_route = Route.masked(route, torch.from_numpy(idx), CELLS, 2, BLOCK_CORE)
     hB = blocked.edges_cube_to_blocks(
         torch.from_numpy(h).to(tdt).reshape(b * 2, n, K, c_in),
         CELLS, BLOCK_CORE).reshape(b, 2, -1, BLOCK_R, K, c_in)
     mbB = blocked.cube_to_blocks(tg.mask_b.to(tdt), CELLS, BLOCK_CORE)
     got = T15._shift_inv_15op_layer_blocks(
-        hB, {k: v.to(tdt) for k, v in _tt(params).items()}, t_masks, lat, mbB,
-        tg.deg, tg.deg.sum(-1), T15.reverse_lookup(tg, CELLS, BLOCK_CORE), is_last)
+        hB, {k: v.to(tdt) for k, v in _tt(params).items()}, t_route, mbB,
+        tg.deg, tg.deg.sum(-1), T15.reverse_lookup(tg, t_route), is_last)
     assert got.dtype == tdt and tuple(got.shape) == want.shape
     return got.float().numpy(), np.asarray(want.astype(jnp.float32))
 
@@ -294,11 +296,10 @@ def test_block_network_matches_jax_f32(monkeypatch):
     want = np.asarray(jax.jit(lambda p: J15.shiftinv15_model(
         p, jnp.asarray(pos), jnp.asarray(za), jnp.asarray(idx), BOX,
         lattice=lat, masks=jmasks))(params))
-    plan = blocked.block_index_plan(torch.from_numpy(idx), CELLS, 2, BLOCK_CORE,
-                                    drop_self_slot0=True)
+    route = Route.masked("index", torch.from_numpy(idx), CELLS, 2, BLOCK_CORE)
     tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, params)).layers()
     got = T15.shiftinv15_model(tparams, torch.from_numpy(pos), torch.from_numpy(za),
-                               torch.from_numpy(idx), BOX, lattice=lat, masks=plan)
+                               route, BOX)
     assert got.shape == want.shape == (2, CELLS ** 3, 3)
     np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-5, atol=1e-5)
 
@@ -433,7 +434,8 @@ def _composed_layer(h, g, layer_params, is_last):
     """The cube-form layer as it was composed before its edge epilogue was
     fused (one PyTorch pass an operation): the fused layer's oracle."""
     w, bias, dt = layer_params["W"], layer_params["B"], h.dtype
-    lookup = T15.reverse_lookup(g)
+    route = Route.direct(g.idx)
+    lookup = T15.reverse_lookup(g, route)
 
     def mm(x, wi):
         return T15._mm(x, wi, dt)
@@ -447,8 +449,7 @@ def _composed_layer(h, g, layer_params, is_last):
     mb = g.mask_b[..., None]
     h_d = h[:, 0, :, 0, :]
     hb_m = h[:, 1] * mb
-    s2 = neighbor_scatter_add(torch.cat([h[:, 0].to(hb_m.dtype), hb_m], dim=-1),
-                              g.idx)
+    s2 = route.scatter_add(torch.cat([h[:, 0].to(hb_m.dtype), hb_m], dim=-1))
     sum_a = torch.sum(h[:, 0], dim=2)
     h_r = (s2[..., :c_in] + torch.sum(hb_m, dim=2)) / g.deg[..., None]
     h_c = (sum_a + s2[..., c_in:]) / g.deg[..., None]
@@ -462,9 +463,9 @@ def _composed_layer(h, g, layer_params, is_last):
         out = out + transpose(mm(h, w[1]))
     else:
         out = out + mm(transpose(h), w[1])
-    g_col = neighbor_gather(x_col, g.idx)
+    g_col = route.gather(x_col)
     out = out + torch.stack([g_col, x_col[:, :, None, :].expand_as(g_col)], 1)
-    g_row = neighbor_gather(x_row, g.idx)
+    g_row = route.gather(x_row)
     out = out + torch.stack([x_row[:, :, None, :].expand_as(g_row), g_row], 1)
     a9 = mm(h_a, w[9])[:, None, None, None, :]
     p11 = mm(h_p, w[11])[:, None, None, None, :]
@@ -483,8 +484,8 @@ def _composed_layer(h, g, layer_params, is_last):
     out = torch.where(sel, diag[:, None, :, None, :], out + a9 + p11 + b1)
     out = out * torch.stack([torch.ones_like(g.mask_b), g.mask_b], dim=1)[..., None]
     if is_last:
-        sums = torch.sum(out[:, 0], dim=2) + neighbor_scatter_add(
-            out[:, 1] * g.mask_b[..., None], g.idx)
+        sums = torch.sum(out[:, 0], dim=2) + route.scatter_add(
+            out[:, 1] * g.mask_b[..., None])
         return sums / g.deg[..., None]
     return out
 
@@ -520,8 +521,10 @@ def test_fused_layer_equals_composition(c_in, q, is_last, activation, dtype):
         params = {k: v.clone().requires_grad_() for k, v in p0.items()}
         layer = {k: v.to(dt) for k, v in params.items()}
         if fused:
-            out = T15.shift_inv_15op_layer(h, g, layer, is_last=is_last,
-                                           activation=activation)
+            route = Route.direct(g.idx)
+            out = T15.shift_inv_15op_layer(h, g, layer, route,
+                                           T15.reverse_lookup(g, route),
+                                           is_last=is_last, activation=activation)
         else:
             out = _composed_layer(h, g, layer, is_last)
             out = out if is_last else activation(out)

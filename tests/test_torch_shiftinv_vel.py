@@ -37,6 +37,7 @@ from nbody_tpu_torch.models.base import ShiftInvVelParams, params_from_jax
 from nbody_tpu_torch.models.registry import build_model
 from nbody_tpu_torch.ops import blocked as tbl
 from nbody_tpu_torch.ops import graph_features as tgf
+from nbody_tpu_torch.ops.route import Route
 from nbody_tpu_torch.physics.losses import loss_za
 from nbody_tpu_torch.train.trainer import Trainer
 
@@ -134,20 +135,19 @@ def test_edge_features_with_nodes_match(route, dtype):
     idx = np.array(j_lattice(jnp.mod(jnp.asarray(pos) / BOX, 1.0), K,
                              cells=CELLS, window=2))
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
-    jkw, tkw = {}, {}
+    jkw, troute = {}, Route.direct(torch.from_numpy(idx))
     if route == "index":
         core = tbl.MASKED_CORE
         jkw = dict(lattice=(CELLS, 2, core, True), masks=jbl.block_positions(
             jnp.asarray(idx), CELLS, 2, core, drop_self_slot0=True))
-        tkw = dict(lattice=(CELLS, 2, core, True), masks=tbl.block_index_plan(
-            torch.from_numpy(idx), CELLS, 2, core, drop_self_slot0=True))
+        troute = Route.masked("index", torch.from_numpy(idx), CELLS, 2, core)
     want = jgf.edge_features_with_nodes(
         jnp.asarray(pos).astype(jdt), jnp.asarray(idx), jnp.asarray(vel).astype(jdt),
         BOX, za_disp=jnp.asarray(za).astype(jdt), **jkw)
     got = tgf.edge_features_with_nodes(
-        torch.from_numpy(pos).to(tdt), torch.from_numpy(idx),
+        torch.from_numpy(pos).to(tdt), troute,
         torch.from_numpy(np.ascontiguousarray(vel)).to(tdt), BOX,
-        za_disp=torch.from_numpy(np.ascontiguousarray(za)).to(tdt), **tkw)
+        za_disp=torch.from_numpy(np.ascontiguousarray(za)).to(tdt))
     assert got.dtype == tdt and got.shape == (2, CELLS ** 3, K, 9)
     want = np.asarray(want.astype(jnp.float32))
     # bf16: elementwise rounding differs between the frameworks; one bf16
@@ -245,10 +245,10 @@ def test_index_core_choice(masked_core, cells, want):
     cfg = C.ModelConfig(mask_dtype="index", masked_core=masked_core,
                         k_neighbors=K, knn_window=2)
     idx = torch.zeros((1, cells ** 3, K), dtype=torch.int32)
-    rec = {}
-    masks, lat = registry._make_masks(cfg, cells, cells ** 3, idx,
-                                      torch.bfloat16, rec)
-    assert rec["core"] == want and lat == (cells, 2, tuple(want), True)
+    route = registry._make_route(cfg, cells, cells ** 3, idx, torch.bfloat16)
+    masks = route.plan
+    assert route.record()["core"] == want and route.kind == "index"
+    assert (route.cells, route.window, route.core) == (cells, 2, tuple(want))
     assert masks.pos.shape == (1, cells ** 3 // int(np.prod(want)),
                                int(np.prod(want)) * (K - 1))
     assert masks.offsets.shape == (
