@@ -44,7 +44,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      --mask_dtype index and evaluate, counting launches (D and E run, B
      and C do not); one train step must launch lattice_knn once, D 12
      times, E 11 times, the 4-op epilogue's forward and backward 6 times
-     each (as on every 4-op route below) and nothing else; step time and
+     each (as on every 4-op route below), block_patches and patches_fold
+     12 times each (as on the block and int8 routes) and nothing else;
+     step time and
      peak memory, also for core (8,8,8);
   8. the --impl block route at 32^3 b4: 3 bf16 fit steps on F and G; one
      train step must launch lattice_knn once, F 12 times, G 11 times and
@@ -171,8 +173,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
      within 1e-5 of their |terms| (plus one bf16 unit), both repeatable,
      one launch counted each; each timed beside its logical bytes' bound
      and the unfused chain (forward; autograd's backward of it), its
-     kernels' names in the benchmark's "other" bucket.
-The line before the last is {"kernels": [...]}, all seventeen kernels with
+     kernels' names in the benchmark's "other" bucket;
+ 20. the masked route's block layout (csrc/block_layout.cu):
+     block_patches and patches_fold against their plain versions (run on
+     the card and, for the fold, on the CPU) at every width the velocity
+     step (64^3 b4, core (4, 8, 8)) and the 15-op index step (32^3 b4,
+     core (8, 8, 8)) give them and at the counts' width 1, in f32 and
+     bf16, and at 32^3 b4 core (4, 4, 8) (--impl block) at C 64: bit-equal,
+     repeatable, one launch counted each; timed beside their bytes'
+     bound and the plain versions; their names in the benchmark's "other"
+     bucket.  The launches of one step on every block-layout route are
+     pinned in phases 7, 8, 11, 14 and 17 (BLOCK_LAYOUT_STEP_LAUNCHES and
+     its 15-op counts; none on a direct-route step).
+The line before the last is {"kernels": [...]}, all nineteen kernels with
 their bounds (H100 SXM peaks: 3.35 TB/s, 67 TFLOP/s FP32, 989 TFLOP/s bf16
 tensor cores); the last line is {"ok": true, "device": {...}}.
 """
@@ -202,23 +215,30 @@ SEG_WIDTHS = (1,) + WIDTHS        # and the segment sum's, counts included
 # the 4-op layer's epilogue (ops/kernels/epilogue4.py) on every route of
 # a 4-op train step: its forward and its backward once a layer
 EPILOGUE4_STEP_LAUNCHES = {"epilogue4_forward": 6, "epilogue4_backward": 6}
+# the masked and block routes' layout (ops/kernels/block_layout.py) on a
+# 4-op train step: block_patches before each of the 12 gathers of D, F or
+# H, patches_fold after each of the 12 scatters or counts of E, G or I
+# (on the index and block routes the 12th fold is the in-degree counts')
+BLOCK_LAYOUT_STEP_LAUNCHES = {"block_patches": 12, "patches_fold": 12}
 # launches of one main-path train step: the graph build, the segment
-# sum's 6 forward scatter-means + 5 gradients of the gathers, the epilogue
+# sum's 6 forward scatter-means + 5 gradients of the gathers, the epilogue;
+# no block layout on the direct route
 STEP_LAUNCHES = {"lattice_knn": 1, "topk_min": 0, "neighbor_segment_sum": 11,
+                 "block_patches": 0, "patches_fold": 0,
                  **EPILOGUE4_STEP_LAUNCHES}
 # every launch of one train step on the 64^3 index route and the 32^3
 # block route: the features' gather, 6 forward and 5 backward gathers; the
 # 6 forward scatter-means and 5 gradients of the gathers (the in-degree
-# counts come off the block plan, with no launch); the epilogue
+# counts come off the block plan, with no launch); the epilogue; the layout
 INDEX_STEP_LAUNCHES = {"lattice_knn": 1, "idx_dot_gather": 12, "idx_dot_scatter": 11,
-                       **EPILOGUE4_STEP_LAUNCHES}
+                       **EPILOGUE4_STEP_LAUNCHES, **BLOCK_LAYOUT_STEP_LAUNCHES}
 BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "block_gather": 12, "block_scatter": 11,
-                       **EPILOGUE4_STEP_LAUNCHES}
+                       **EPILOGUE4_STEP_LAUNCHES, **BLOCK_LAYOUT_STEP_LAUNCHES}
 # and on the int8 route: the features' gather, 6 forward and 5 backward
 # gathers (H); the in-degree count, 6 forward scatter-means and 5
-# gradients of the gathers (I); the epilogue
+# gradients of the gathers (I); the epilogue; the layout
 INT8_STEP_LAUNCHES = {"lattice_knn": 1, "mask_dot_gather": 12, "mask_dot_scatter": 12,
-                      **EPILOGUE4_STEP_LAUNCHES}
+                      **EPILOGUE4_STEP_LAUNCHES, **BLOCK_LAYOUT_STEP_LAUNCHES}
 CELLS64 = 64
 # phase 15: set at BASELINE config 1 (16^3 b4), attn at the reference's b10
 SET_CELLS, SET_BATCH, ATTN_BATCH = 16, 4, 10
@@ -254,20 +274,24 @@ S15_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 26,
 # layer) and C 6 (the degree, five lookup gradients); the mask gather 13
 # (the features' gather and one fused gather a layer, five fused-scatter
 # gradients and the row pool's) and the mask scatter 13 (one fused
-# scatter a layer and the row pool, six fused-gather gradients)
+# scatter a layer and the row pool, six fused-gather gradients), and the
+# layout around each of them
 S15_INDEX_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
                            "neighbor_segment_sum": 6, "idx_dot_gather": 13,
-                           "idx_dot_scatter": 13}
+                           "idx_dot_scatter": 13, "block_patches": 13,
+                           "patches_fold": 13}
 S15_INT8_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
                           "neighbor_segment_sum": 6, "mask_dot_gather": 13,
-                          "mask_dot_scatter": 13}
+                          "mask_dot_scatter": 13, "block_patches": 13,
+                          "patches_fold": 13}
 # the block route (the cube form on F/G): B 7 and C 6 as above; F 19 (the
 # features' gather, two broadcasts a layer, the gradients of layers 1-5's
 # pool scatters and of the row pool) and G 19 (a pool scatter a layer, the
-# row pool, the twelve broadcasts' gradients)
+# row pool, the twelve broadcasts' gradients), and the layout around each
 S15_BLOCK_STEP_LAUNCHES = {"lattice_knn": 1, "neighbor_gather": 7,
                            "neighbor_segment_sum": 6, "block_gather": 19,
-                           "block_scatter": 19, **S15_EPILOGUE_LAUNCHES}
+                           "block_scatter": 19, "block_patches": 19,
+                           "patches_fold": 19, **S15_EPILOGUE_LAUNCHES}
 # --remat: every layer's forward runs again in the backward pass: the
 # 4-op main step adds B 6, C 6 and the 4-op epilogue's forward 5 (the last
 # layer's recompute stops before its epilogue, which saves nothing), the
@@ -290,6 +314,7 @@ BLOCK_SRC = "nbody_tpu_torch/csrc/block_kernels.cu"
 MASK_SRC = "nbody_tpu_torch/csrc/mask_kernels.cu"
 EPILOGUE_SRC = "nbody_tpu_torch/csrc/edge_epilogue.cu"
 EPILOGUE4_SRC = "nbody_tpu_torch/csrc/epilogue4.cu"
+BLOCK_LAYOUT_SRC = "nbody_tpu_torch/csrc/block_layout.cu"
 # widths the mask-dot kernels see on the int8 route: the counts, the
 # displacement gather and the channels 3-32-64-64-32-16-3
 MASK_WIDTHS = (1, 3, 16, 32, 64)
@@ -322,6 +347,10 @@ REPO_KERNELS = {
     # and so does the 4-op layer's epilogue
     **{n: (EPILOGUE4_SRC, "none (the XLA-fused chain)")
        for n in ("epilogue4_forward", "epilogue4_backward")},
+    # the block layout replaces XLA's pad, strided slices and slice-adds
+    **{n: (BLOCK_LAYOUT_SRC, "none (the XLA pad, slices and slice-adds of "
+                             "nbody_tpu/ops/blocked.py:122-201)")
+       for n in ("block_patches", "patches_fold")},
 }
 
 
@@ -2845,6 +2874,113 @@ def check_epilogue4(dev):
     return {"epilogue4_forward": widest["fwd"], "epilogue4_backward": widest["bwd"]}
 
 
+# phase 20: the block layout's shapes: (cube side, core, widths) of the
+# velocity step (64^3 b4, core (4, 8, 8): counts 1, payload 6, channels
+# 9-32-64-64-32-16-6) and the 15-op index step (32^3 b4, core (8, 8, 8):
+# counts 1, 3, payload 6, fused widths 32-128), and the --impl block core
+BLOCK_LAYOUT_CASES = (
+    (CELLS64, (4, 8, 8), (1, 6, 9, 16, 32, 64)),
+    (CELLS, (8, 8, 8), (1, 3, 6, 32, 64, 128)),
+    (CELLS, (4, 4, 8), (64,)),
+)
+
+
+def check_block_layout(dev):
+    """Phase 20: block_patches and patches_fold (csrc/block_layout.cu) at
+    BLOCK_LAYOUT_CASES, b4 window 2, in f32 and bf16: each bit-equal to
+    its plain version on the card (the fold also to the plain version on
+    the CPU), identical across two launches, one launch counted; timed
+    beside its bytes' bound at 3.35 TB/s (the input and the output once
+    each) and its plain version, its kernels' names in the benchmark's
+    "other" bucket.  Returns the kernels line's records (the velocity
+    step's widest layer: block_patches in bf16, patches_fold in f32, C 64)."""
+    from benchmark_torch.yardstick.buckets import bucket_of
+    from nbody_tpu_torch.ops.kernels import block_layout as BL
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(20)
+    summary, names = {}, set()
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def counted(fn, name):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        check(launches() == {name: 1}, f"{name}: launches {dict(launches())}")
+        return out
+
+    def timed(label, kern, plain, n_bytes):
+        """CUDA-event ms of the kernel and its plain version, beside the
+        bound of n_bytes (events only: torch.profiler drops the records
+        of windows of short kernels)."""
+        ms, plain_ms = cuda_ms(kern, iters=20), cuda_ms(plain, iters=5)
+        b_ms, by = bound(n_bytes)
+        print(f"time {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({by}); share {b_ms / ms:.3f}")
+        return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                "bound_ms": b_ms, "bound_by": by, "share": b_ms / ms,
+                "max_abs_err": 0.0}
+
+    for cells, core, widths in BLOCK_LAYOUT_CASES:
+        for c in widths:
+            for dt in (torch.float32, torch.bfloat16):
+                label = f"{cells}^3 b{BATCH} core {core} C={c} {str(dt)[6:]}"
+                values = torch.randn(BATCH, cells ** 3, c, generator=gen,
+                                     device=dev).to(dt)
+                patches = counted(lambda: BL.block_patches(values, cells, WINDOW, core),
+                                  "block_patches")
+                want = BL.block_patches_plain(values, cells, WINDOW, core)
+                check(torch.equal(bits(patches), bits(want)) and torch.equal(
+                    bits(patches), bits(BL.block_patches(values, cells, WINDOW, core))),
+                      f"block_patches {label}: not the plain version's bits, or "
+                      "not repeatable")
+                acc = torch.randn(want.shape, generator=gen, device=dev).to(dt)
+                fold = counted(lambda: BL.patches_fold(acc, cells, WINDOW, core),
+                               "patches_fold")
+                fw = BL.patches_fold_plain(acc, cells, WINDOW, core)
+                fc = BL.patches_fold_plain(acc.cpu(), cells, WINDOW, core)
+                check(torch.equal(bits(fold), bits(fw))
+                      and torch.equal(bits(fold.cpu()), bits(fc))
+                      and torch.equal(bits(fold),
+                                      bits(BL.patches_fold(acc, cells, WINDOW, core))),
+                      f"patches_fold {label}: not the plain version's bits (card "
+                      "or CPU), or not repeatable")
+                rec = {"build": timed(
+                           f"block_patches {label}",
+                           lambda: BL.block_patches(values, cells, WINDOW, core),
+                           lambda: BL.block_patches_plain(values, cells, WINDOW, core),
+                           nbytes(values, patches)),
+                       "fold": timed(
+                           f"patches_fold {label}",
+                           lambda: BL.patches_fold(acc, cells, WINDOW, core),
+                           lambda: BL.patches_fold_plain(acc, cells, WINDOW, core),
+                           nbytes(acc, fold))}
+                if c == 64 and cells == CELLS64:
+                    # a window of 10 calls: the profiler has dropped every
+                    # record of a window of 2 (about 2 ms of kernels)
+                    names.update(r[0] for r in cuda_profile(
+                        lambda: (BL.block_patches(values, cells, WINDOW, core),
+                                 BL.patches_fold(acc, cells, WINDOW, core)), 10))
+                summary[label] = rec
+                del values, patches, want, acc, fold, fw, fc
+        torch.cuda.empty_cache()
+    ours = sorted(nm for nm in names if "patch_build" in nm or "patch_fold" in nm)
+    bad = [nm for nm in ours if bucket_of(nm) != "other"]
+    print(f"block layout at {len(summary)} cases: both kernels bit-equal to their "
+          f"plain versions, repeatable; kernels {ours}")
+    check(any("patch_build_kernel" in nm for nm in ours)
+          and any("patch_fold_kernel" in nm for nm in ours) and not bad,
+          f"block layout kernels {ours}: {bad} land in a benchmark bucket other "
+          "than other, or one did not run")
+    print(f"block layout (phase 20, {time.perf_counter() - t_phase:.1f} s): "
+          f"{json.dumps(summary)}")
+    key = f"{CELLS64}^3 b{BATCH} core (4, 8, 8) C=64"
+    return {"block_patches": summary[f"{key} bfloat16"]["build"],
+            "patches_fold": summary[f"{key} float32"]["fold"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
@@ -2853,10 +2989,10 @@ def main() -> int:
     from nbody_tpu_torch import config as C
     from nbody_tpu_torch.data.dataset import Dataset, split_batch
     from nbody_tpu_torch.models.registry import build_model
-    from nbody_tpu_torch.ops.kernels import (banded_kernels, block_kernels, build,
-                                             edge_epilogue, epilogue4,
-                                             fused_kernels, mask_kernels,
-                                             topk_kernels)
+    from nbody_tpu_torch.ops.kernels import (banded_kernels, block_kernels,
+                                             block_layout, build, edge_epilogue,
+                                             epilogue4, fused_kernels,
+                                             mask_kernels, topk_kernels)
     from nbody_tpu_torch.physics.losses import loss_za
     from nbody_tpu_torch.train.trainer import Trainer
 
@@ -2873,7 +3009,7 @@ def main() -> int:
     libraries = (topk_kernels.library, banded_kernels.library,
                  block_kernels.library, mask_kernels.library,
                  fused_kernels.library, edge_epilogue.library,
-                 epilogue4.library)
+                 epilogue4.library, block_layout.library)
     with ThreadPoolExecutor(len(libraries)) as pool:
         list(pool.map(lambda load: load(), libraries))
     print(f"kernels built and loaded in {time.perf_counter() - t0:.1f} s "
@@ -3015,6 +3151,10 @@ def main() -> int:
     rec.update(check_epilogue4(dev))
     for n in EPILOGUE4_STEP_LAUNCHES:
         counters[n] = step[n]
+    # 20. the masked route's block layout
+    rec.update(check_block_layout(dev))
+    for n in BLOCK_LAYOUT_STEP_LAUNCHES:
+        counters[n] = counts64[n]
 
     kernels = [{"name": n, "route": "cuda", "source": REPO_KERNELS[n][0],
                 "replaces": REPO_KERNELS[n][1], "launches": counters[n],

@@ -8,8 +8,8 @@ against the patch by a per-edge position in [0, P):
 
   cube_to_blocks / blocks_to_cube   reshapes + permutes between the z-major
                                     cube order and block-major order;
-  block_patches                     the dilated patches, strided views of
-                                    the circularly padded cube (one copy);
+  block_patches                     the dilated patches, gathered from the
+                                    periodic cube (one copy);
   edge_block_positions              each edge's neighbor as a position in
                                     its block's patch (integer arithmetic);
   block_index_plan                  the positions with the edges sorted by
@@ -23,6 +23,10 @@ against the patch by a per-edge position in [0, P):
   patches_fold                      the transpose of block_patches: the
                                     per-block (P, C) sums overlap-added
                                     back into the cube, in f32.
+
+block_patches and patches_fold are one CUDA pass each on a card
+(ops/kernels/block_layout.py -> csrc/block_layout.cu), their plain versions
+on the CPU.
 
 Requires N == cells^3 in grid order and |offset| <= window per axis, which
 the lattice kNN guarantees.  The core shape travels as an argument; the
@@ -46,6 +50,8 @@ import torch
 
 from nbody_tpu_torch import tracing
 from nbody_tpu_torch.ops.kernels import block_kernels as BK
+from nbody_tpu_torch.ops.kernels import block_layout as BL
+from nbody_tpu_torch.ops.kernels.block_layout import block_geometry
 from nbody_tpu_torch.ops.kernels.block_kernels import BlockPlan
 from nbody_tpu_torch.ops.kernels.idx_kernels import idx_dot_gather, idx_dot_scatter
 from nbody_tpu_torch.ops.kernels.mask_kernels import (mask_dot_gather,
@@ -59,16 +65,6 @@ CORE = (4, 4, 8)
 MASKED_CORE = (4, 8, 8)
 
 Core = Tuple[int, int, int]
-
-
-def block_geometry(cells: int, window: int, core: Sequence[int]):
-    """-> ((nbx, nby, nbz) blocks per axis, (ex, ey, ez) patch extents)."""
-    bx, by, bz = core
-    if cells % bx or cells % by or cells % bz:
-        raise ValueError(f"core {tuple(core)} does not tile a {cells}^3 cube")
-    nb = (cells // bx, cells // by, cells // bz)
-    ext = (bx + 2 * window, by + 2 * window, bz + 2 * window)
-    return nb, ext
 
 
 def patch_size(cells: int, window: int, core: Sequence[int]) -> int:
@@ -96,62 +92,6 @@ def blocks_to_cube(blocks: torch.Tensor, cells: int,
     return v.reshape(b, cells ** 3, c)
 
 
-def _wrap_pad(grid: torch.Tensor, w: int) -> torch.Tensor:
-    """(B, c, c, c, C) -> circularly padded (B, c+2w, c+2w, c+2w, C)
-    (jnp.pad mode="wrap")."""
-    cells = grid.shape[1]
-    ids = torch.remainder(torch.arange(-w, cells + w, device=grid.device), cells)
-    for axis in (1, 2, 3):
-        grid = grid.index_select(axis, ids)
-    return grid
-
-
-def _block_patches(values: torch.Tensor, cells: int, window: int,
-                   core: Sequence[int]) -> torch.Tensor:
-    b, _, c = values.shape
-    bx, by, bz = core
-    (nbx, nby, nbz), (ex, ey, ez) = block_geometry(cells, window, core)
-    padded = _wrap_pad(values.reshape(b, cells, cells, cells, c), window)
-    u = padded.unfold(1, ex, bx).unfold(2, ey, by).unfold(3, ez, bz)
-    # (B, nbx, nby, nbz, C, ex, ey, ez) -> (B, nbx, nby, nbz, ex, ey, ez, C)
-    u = u.permute(0, 1, 2, 3, 5, 6, 7, 4)
-    return u.reshape(b, nbx * nby * nbz, ex * ey * ez, c)
-
-
-def _patches_fold(acc: torch.Tensor, cells: int, window: int,
-                  core: Sequence[int]) -> torch.Tensor:
-    b, _, _, c = acc.shape
-    bx, by, bz = core
-    (nbx, nby, nbz), (ex, ey, ez) = block_geometry(cells, window, core)
-    w = window
-    pc = cells + 2 * w
-    a = acc.reshape(b, nbx, nby, nbz, ex, ey, ez, c)
-    a = a.permute(0, 1, 4, 2, 5, 3, 6, 7)       # (B, nbx, ex, nby, ey, nbz, ez, C)
-    rows_z = b * nbx * ex * nby * ey
-    a3 = a.reshape(rows_z, nbz, ez, c)
-    az = acc.new_zeros((rows_z, pc, c))
-    for lz in range(ez):
-        az[:, lz:lz + nbz * bz:bz] += a3[:, :, lz]
-    rows_y = b * nbx * ex
-    a4 = az.reshape(rows_y, nby, ey, pc * c)
-    ay = acc.new_zeros((rows_y, pc, pc * c))
-    for ly in range(ey):
-        ay[:, ly:ly + nby * by:by] += a4[:, :, ly]
-    a5 = ay.reshape(b, nbx, ex, pc * pc * c)
-    out = acc.new_zeros((b, pc, pc * pc * c))
-    for lx in range(ex):
-        out[:, lx:lx + nbx * bx:bx] += a5[:, :, lx]
-    out = out.reshape(b, pc, pc, pc, c)
-    # padded coords [0, w) belong to [cells-w, cells), [w+cells, cells+2w)
-    # to [0, w)
-    for axis in (1, 2, 3):
-        core_part = out.narrow(axis, w, cells).clone()
-        core_part.narrow(axis, cells - w, w).add_(out.narrow(axis, 0, w))
-        core_part.narrow(axis, 0, w).add_(out.narrow(axis, w + cells, w))
-        out = core_part
-    return out.reshape(b, cells ** 3, c)
-
-
 class _BlockPatches(torch.autograd.Function):
     """block_patches with patches_fold as its gradient, in the cotangent's
     dtype: JAX transposes block_patches in the patches' dtype, in the same
@@ -160,11 +100,11 @@ class _BlockPatches(torch.autograd.Function):
     @staticmethod
     def forward(ctx, values, cells, window, core):
         ctx.geom = (cells, window, core)
-        return _block_patches(values, cells, window, core)
+        return BL.block_patches(values, cells, window, core)
 
     @staticmethod
     def backward(ctx, ct):
-        return _patches_fold(ct, *ctx.geom), None, None, None
+        return BL.patches_fold(ct, *ctx.geom), None, None, None
 
 
 class _PatchesFold(torch.autograd.Function):
@@ -173,19 +113,19 @@ class _PatchesFold(torch.autograd.Function):
     @staticmethod
     def forward(ctx, acc, cells, window, core):
         ctx.geom = (cells, window, core)
-        return _patches_fold(acc, cells, window, core)
+        return BL.patches_fold(acc, cells, window, core)
 
     @staticmethod
     def backward(ctx, ct):
-        return _block_patches(ct, *ctx.geom), None, None, None
+        return BL.block_patches(ct, *ctx.geom), None, None, None
 
 
 def block_patches(values: torch.Tensor, cells: int, window: int,
                   core: Sequence[int]) -> torch.Tensor:
     """(B, N, C) -> (B, NB, P, C): each core block's dilated patch, in
-    (lx, ly, lz) order.  The windows are strided views (unfold) of the
-    padded cube; the final reshape is the one copy.  Its gradient is
-    patches_fold (an autograd pair, so autograd records no slice ops)."""
+    (lx, ly, lz) order (block_layout.block_patches: one copy).  Its
+    gradient is patches_fold (an autograd pair, so autograd records no
+    slice ops)."""
     return tracing.layout("block_patches", _BlockPatches.apply, values, cells,
                           window, tuple(core))
 
@@ -195,8 +135,9 @@ def patches_fold(acc: torch.Tensor, cells: int, window: int,
     """(B, NB, P, C) per-block sums -> (B, N, C): the exact transpose of
     block_patches, with the JAX package's order of adds (z, then y, then x
     strided slice-adds into the padded cube, then the pad rings folded
-    back axis by axis), so f32 sums are bit-equal to it.  Its gradient is
-    block_patches."""
+    back axis by axis), so f32 sums are bit-equal to it
+    (block_layout.patches_fold; on a card one pass that adds each row in
+    that order).  Its gradient is block_patches."""
     return tracing.layout("patches_fold", _PatchesFold.apply, acc, cells,
                           window, tuple(core))
 
