@@ -14,6 +14,15 @@ statistics over (b, N) (population variance, eps 1e-3) in train mode,
 and the reference's frozen (0, 1) statistics in eval mode.  Every
 product is a plain torch op, as it was an XLA op outside any Pallas
 kernel in JAX.
+
+Tracing (tracing.py): in an open step timeline each layer's gate (the
+three mean-centred products, the gram, its softmax, the product with xh
+and B) is a segment of kind ``gate`` (marks ``gate<i>``,
+``gate<i>.gate``, and backward ``gate<i>.backward``,
+``gate<i>.backward.gate``), and each hidden layer's leaky relu and batch
+norm one of kind ``norm`` (``norm<i>`` ... ``norm<i>.backward.norm``).
+Every forward counts ``attn.gate`` and ``attn.norm`` (23 and 22 at
+ATTN_CHANNELS) and, a gate, the rows its gram reduced, ``attn.gate_rows``.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from nbody_tpu_torch import tracing
 from nbody_tpu_torch.models.base import AttnParams, glorot_normal
 
 ATTN_BIAS_INIT = 1e-6   # reference experiment.py:54
@@ -51,18 +61,30 @@ def set_transform(x_in: torch.Tensor, w: torch.Tensor,
     return out if b is None else out + b
 
 
-def attn_layer(x_in: torch.Tensor, p: Dict[str, torch.Tensor],
-               batch_coupled_gate: bool = True) -> torch.Tensor:
-    """Channel-gate attention (reference experiment.py:108-132)."""
-    xf = set_transform(x_in, p["Wf"])
-    xg = set_transform(x_in, p["Wg"])
-    xh = set_transform(x_in, p["Wh"])
+def _gate(x_in: torch.Tensor, wf: torch.Tensor, wg: torch.Tensor,
+          wh: torch.Tensor, bias: torch.Tensor,
+          batch_coupled_gate: bool) -> torch.Tensor:
+    xf = set_transform(x_in, wf)
+    xg = set_transform(x_in, wg)
+    xh = set_transform(x_in, wh)
     if batch_coupled_gate:
         k = xf.shape[-1]
         gram = torch.matmul(xf.reshape(-1, k).T, xg.reshape(-1, k))  # (k, k)
     else:
         gram = torch.matmul(xf.transpose(1, 2), xg)                 # (b, k, k)
-    return torch.matmul(xh, torch.softmax(gram, dim=-1)) + p["B"]
+    return torch.matmul(xh, torch.softmax(gram, dim=-1)) + bias
+
+
+def attn_layer(x_in: torch.Tensor, p: Dict[str, torch.Tensor],
+               batch_coupled_gate: bool = True) -> torch.Tensor:
+    """Channel-gate attention (reference experiment.py:108-132), a
+    ``gate`` segment of the open timeline; counts ``attn.gate`` and the
+    rows its gram reduces, ``attn.gate_rows`` (b x N coupled, else N)."""
+    b, n, _ = x_in.shape
+    tracing.count("attn.gate")
+    tracing.count("attn.gate_rows", b * n if batch_coupled_gate else n)
+    return tracing.segment("gate", "gate", _gate, x_in, p["Wf"], p["Wg"],
+                           p["Wh"], p["B"], batch_coupled_gate)
 
 
 def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -84,10 +106,15 @@ def attn_network(params: List[Dict[str, torch.Tensor]], x_in: torch.Tensor,
     """[attn -> leaky relu -> batch norm] stack, the tanh input residual of
     the last hidden layer merged into the final layer's input (reference
     net_fwd, experiment.py:139-157)."""
+    def norm(h, gamma, beta):
+        return batch_norm(F.leaky_relu(h, 0.01), gamma, beta,
+                          train_mode=train_mode)
+
     def hidden(h, p):
-        return batch_norm(F.leaky_relu(attn_layer(h, p, batch_coupled_gate),
-                                       0.01),
-                          p["gamma"], p["beta"], train_mode=train_mode)
+        tracing.count("attn.norm")
+        return tracing.segment("norm", "norm", norm,
+                               attn_layer(h, p, batch_coupled_gate),
+                               p["gamma"], p["beta"])
 
     h = hidden(x_in, params[0])
     r = torch.tanh(set_transform(x_in, params[0]["R"]))

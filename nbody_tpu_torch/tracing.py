@@ -30,12 +30,16 @@ The step timeline
     to the step exactly, while the split between adjacent layers is
     approximate where autograd interleaves weight and input gradients.
 
-    ``layout(name, fn, x, ...)`` runs ``fn(x, ...)``, layout work (a
-    copy of x into another order), between two such probes: the forward
-    segment that closes on it is ``<name><i>.layout`` and the backward's
-    ``<name><i>.backward.layout`` (i counts the step's calls of `name`,
-    so every mark of a step has its own name); the work before each is
-    ``<name><i>`` and ``<name><i>.backward``.
+    ``segment(kind, name, fn, x, ...)`` runs ``fn(x, ...)`` between two
+    such probes: the forward segment that closes on it is
+    ``<name><i>.<kind>`` and the backward's ``<name><i>.backward.<kind>``
+    (i counts the step's calls of `name`, so every mark of a step has its
+    own name); the work before each is ``<name><i>`` and
+    ``<name><i>.backward``.  A reader sums a kind's segments by their
+    suffix.  The kinds: ``layout`` (``layout(name, fn, x, ...)``, a copy
+    of x into another order, ops/blocked.py), ``gate`` and ``norm`` (an
+    attn layer's channel gate and its leaky relu and batch norm,
+    models/attn.py).
 
     A timeline is open only inside ``timeline(device, always)``: the
     train step opens one always while TrainScan captures the step's CUDA
@@ -47,7 +51,10 @@ Counters
     ``count(name, n)`` adds to one registry: ``launch.<wrapper>`` (the
     CUDA kernel wrappers), ``loss.particles`` (batch x particles of every
     prediction that reaches physics.losses.loss_za), ``coverage.host_rows``
-    (the rows the coverage check's host k-d tree searched),
+    (the rows the coverage check's host k-d tree searched), ``attn.gate``
+    and ``attn.norm`` (an attn forward's channel gates and batch norms),
+    ``attn.gate_rows`` (the rows each gate's gram reduced: b x N when the
+    gate is batch-coupled, N when it is per sample),
     ``graph.captures``, ``graph.replays`` and ``timeline.marks``.
     TrainScan takes back what a capture counted (a capture runs nothing on
     the card), keeps it as the graph's counts and adds them at every
@@ -151,16 +158,19 @@ def mark(name: str):
 
 
 class _Probe(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, h, tl, name, back):
-        ctx.tl, ctx.back = tl, back
-        tl.mark(name)
-        return h.view_as(h)
+    """Identity on its tensors: marks `name` in the forward, and `back` in
+    the backward once the gradients of all of them are complete."""
 
     @staticmethod
-    def backward(ctx, grad):
+    def forward(ctx, tl, name, back, *ts):
+        ctx.tl, ctx.back = tl, back
+        tl.mark(name)
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *grads):
         ctx.tl.mark(ctx.back)
-        return grad, None, None, None
+        return (None, None, None) + grads
 
 
 def probe(h: torch.Tensor, name: str) -> torch.Tensor:
@@ -170,19 +180,33 @@ def probe(h: torch.Tensor, name: str) -> torch.Tensor:
     tl = _open
     if tl is None:
         return h
-    return _Probe.apply(h, tl, name, name + ".backward")
+    return _Probe.apply(tl, name, name + ".backward", h)[0]
 
 
-def layout(name: str, fn, x: torch.Tensor, *args):
-    """fn(x, *args), layout work, with its forward and backward marked
-    apart in the open timeline (the module's note); fn(x, *args) alone,
-    with no autograd node, where none is open."""
+def segment(kind: str, name: str, fn, x: torch.Tensor, *args):
+    """fn(x, *args), with its forward and backward marked apart in the open
+    timeline as segments of `kind` (the module's note); fn(x, *args)
+    alone, with no autograd node, where none is open.  The backward's
+    closing mark waits for the gradients of x and of every tensor in args
+    that needs one (a layer's weights: its segment holds their gradients
+    too, also where x needs none)."""
     tl = _open
     if tl is None:
         return fn(x, *args)
     tag = tl.tag(name)
-    x = _Probe.apply(x, tl, tag, tag + ".backward.layout")
-    return _Probe.apply(fn(x, *args), tl, tag + ".layout", tag + ".backward")
+    grads = [i for i, a in enumerate(args)
+             if isinstance(a, torch.Tensor) and a.requires_grad]
+    x, *probed = _Probe.apply(tl, tag, f"{tag}.backward.{kind}", x,
+                              *(args[i] for i in grads))
+    args = list(args)
+    for i, a in zip(grads, probed):
+        args[i] = a
+    return _Probe.apply(tl, f"{tag}.{kind}", tag + ".backward", fn(x, *args))[0]
+
+
+def layout(name: str, fn, x: torch.Tensor, *args):
+    """fn(x, *args), layout work, as a segment of kind ``layout``."""
+    return segment("layout", name, fn, x, *args)
 
 
 def count(name: str, n: int = 1):
